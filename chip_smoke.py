@@ -1,0 +1,374 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``libbicos_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+1. Prints the card (name, power limit), the torch and CUDA versions, and
+   builds the CUDA kernels from ``libbicos_tpu_torch/csrc``.
+2. Compares each kernel with its plain PyTorch version on the card, at a
+   full-width row band of the headline input (n=33, 64 x 3300, u8, LIMITED)
+   and at a ragged small shape (n=9, 7 x 1001, u16, FULL).
+3. Runs the headline call ``match(s0, s1, cfg, backend="cuda")`` at full
+   size (n=33, 2200 x 3300, u8, LIMITED, NoDuplicates, threshold 0.96,
+   min_variance 2.0, subpixel step 0.1) on synthetic input: every kernel
+   must have launched, two runs must agree, the valid share must be above
+   0. Each kernel is compared with its plain version again at the shapes
+   the call gives it, and the call and each kernel are timed (CUDA events,
+   median of 5 after a warm run) beside their plain versions.
+
+The bars: descriptor words bit-identical; first/last argmin equal; agree
+corrmaps with the same NaN mask and within 4e-6; disparities equal except
+at pixels whose plain corr lies within 4e-6 of the threshold, or whose
+best and runner-up sweep NXCORR lie within 4e-6 of each other (counted).
+
+Any failure exits non-zero. The last line is the device JSON object; the
+line before it lists the kernels with their launches, errors and times.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+TOL = 4e-6  # corrmap bar of the JAX package's own agree kernel
+THRESHOLD, MIN_VARIANCE, STEP = 0.96, 2.0, 0.1
+HEADLINE = (33, 2200, 3300)
+REPS = 5
+SOURCES = {
+    "transform": ("libbicos_tpu_torch/csrc/transform.cu",
+                  "libbicos_tpu/kernels/transform.py:32"),
+    "hamming": ("libbicos_tpu_torch/csrc/hamming.cu",
+                "libbicos_tpu/kernels/hamming.py:779"),
+    "agree": ("libbicos_tpu_torch/csrc/agree.cu",
+              "libbicos_tpu/kernels/agree.py:483"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int = REPS, warm: int = 1) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed
+    runs, after ``warm`` untimed ones."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def sweep_margins(torch, disp, s0, s1, step, minvar):
+    """Plain-path (best, runner-up) sweep NXCORR per pixel; the runner-up
+    is the best over the x whose interpolated series differs from the
+    best x's."""
+    from libbicos_tpu_torch import agree as ta
+
+    _, h, w = s0.shape
+    _, _, col1c = ta._matched(disp, w, w)
+    s1i = s1.to(torch.int32)
+    y0, y1, y2 = (ta._gather_cols(s1i, (col1c + k).clamp(0, w - 1)).float()
+                  for k in (-1, 0, 1))
+    pa = 0.5 * (y0 - 2.0 * y1 + y2)
+    pb = 0.5 * (y2 - y0)
+    diff0, var0 = ta._stats(s0.to(torch.int32).float())
+    mod = 0xFFFF if s0.dtype == torch.uint16 else 0xFF
+
+    def series(x):
+        xf = torch.tensor(x, dtype=torch.float32, device=s0.device)
+        v = torch.round(((pa * xf) * xf + pb * xf) + y1)
+        it = (v.to(torch.int32) & mod).float()
+        return it, ta._nxcorr_from(diff0, var0, it, minvar)
+
+    xs = ta.subpixel_xgrid(step)
+    best = torch.full((h, w), -1.0, device=s0.device)
+    best_series = torch.zeros_like(y1)
+    for x in xs:
+        it, c = series(x)
+        upd = best < c
+        best = torch.where(upd, c, best)
+        best_series = torch.where(upd[None], it, best_series)
+    runner = torch.full((h, w), -float("inf"), device=s0.device)
+    for x in xs:
+        it, c = series(x)
+        differs = (it != best_series).any(dim=0)
+        runner = torch.where(differs & (c > runner), c, runner)
+    return best, runner
+
+
+# Largest |kernel - plain| seen per kernel over every comparison of the run.
+ERRS = {"transform": 0.0, "hamming": 0.0, "agree": 0.0}
+
+
+def note_err(name, got, want) -> None:
+    diff = (got.long() - want.long()).abs()
+    if diff.numel():
+        ERRS[name] = max(ERRS[name], float(diff.max()))
+
+
+def check_transform(torch, label, stacks, mode):
+    from libbicos_tpu_torch import descriptor as td
+    from libbicos_tpu_torch.kernels.transform import descriptor_words_cuda
+
+    for s in stacks:
+        got = descriptor_words_cuda(s, mode)
+        want = td.descriptor_words(s, mode)
+        note_err("transform", got, want)
+        if not torch.equal(got, want):
+            fail(f"{label}: transform words differ from plain in "
+                 f"{int((got != want).sum())} words")
+
+
+def check_scan(torch, label, w0, w1):
+    from libbicos_tpu_torch import search as ts
+    from libbicos_tpu_torch.kernels.hamming import row_minima_words
+
+    fk, lk = row_minima_words(w0, w1, True)
+    _, fp, lp = ts.row_minima_torch_words(w0, w1, True)
+    note_err("hamming", fk, fp)
+    note_err("hamming", lk, lp)
+    if not (torch.equal(fk, fp) and torch.equal(lk, lp)):
+        fail(f"{label}: scan first/last differ from plain in "
+             f"{int((fk != fp).sum() + (lk != lp).sum())} pixels")
+    return fp, lp
+
+
+def check_agree(torch, label, disp, s0, s1, thr, step, minvar):
+    """Agree kernel vs plain (corrmap error noted in ERRS)."""
+    from libbicos_tpu_torch import agree as ta
+    from libbicos_tpu_torch.kernels.agree import agree_cuda
+
+    ok, ck = agree_cuda(disp, s0, s1, thr, step, minvar)
+    if step is None:
+        op, cp = ta.agree_integer(disp, s0, s1, thr, minvar)
+        op = torch.where(op == ta.INVALID_I16,
+                         torch.tensor(float("nan"), device=op.device),
+                         op.float())
+    else:
+        op, cp = ta.agree_subpixel(disp, s0, s1, thr, step, minvar)
+    if not torch.equal(torch.isnan(ck), torch.isnan(cp)):
+        fail(f"{label}: corrmap NaN masks differ")
+    m = ~torch.isnan(cp)
+    err = (ck[m] - cp[m]).abs()
+    if bool((err > TOL + TOL * cp[m].abs()).any()):
+        fail(f"{label}: corrmap off by up to {float(err.max())}")
+    max_err = float(err.max()) if err.numel() else 0.0
+    ERRS["agree"] = max(ERRS["agree"], max_err)
+    differ = ~((torch.isnan(ok) & torch.isnan(op)) | (ok == op))
+    ties = 0
+    if bool(differ.any()):
+        # Only the rows with a difference need the sweep margins.
+        rows = differ.any(dim=1).nonzero()[:, 0]
+        excused = (cp[rows] - thr).abs() <= TOL
+        if step is not None:
+            best, runner = sweep_margins(torch, disp[rows], s0[:, rows],
+                                         s1[:, rows], step, minvar)
+            excused |= (best - runner) <= TOL
+        bad = differ[rows] & ~excused
+        if bool(bad.any()):
+            fail(f"{label}: {int(bad.sum())} disparities differ outside the "
+                 f"tie rules (step={step}, thr={thr})")
+        ties = int(excused.sum())
+    print(f"  {label} agree step={step} thr={thr} minvar={minvar}: "
+          f"{int(differ.sum())} disparities differ (each at a threshold or "
+          f"sweep tie; {ties} tie pixels in their rows); corrmap max err "
+          f"{max_err:.3g}", flush=True)
+
+
+def compare_case(torch, label, s0, s1, mode, steps):
+    """Each kernel against its plain version on one input."""
+    from libbicos_tpu_torch import descriptor as td
+    from libbicos_tpu_torch import search as ts
+
+    check_transform(torch, label, (s0, s1), mode)
+    first, last = check_scan(torch, label, td.descriptor_words(s0, mode),
+                             td.descriptor_words(s1, mode))
+    disp = ts._finish_nodupes(first, last, s0.shape[2])
+    minvar = MIN_VARIANCE * s0.shape[0]
+    for step in steps:
+        for thr, mv in ((THRESHOLD, minvar), (-1.0, None)):
+            check_agree(torch, label, disp, s0, s1, thr, step, mv)
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs only on the GPU")
+    if not (REPO / "libbicos_tpu_torch" / "csrc").is_dir():
+        fail(f"libbicos_tpu_torch/csrc not found beside {__file__}")
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+
+    import libbicos_tpu_torch as bicos
+    from libbicos_tpu_torch import agree as ta
+    from libbicos_tpu_torch import descriptor as td
+    from libbicos_tpu_torch import search as ts
+    from libbicos_tpu_torch.io import synthetic_stack_pair
+    from libbicos_tpu_torch.kernels import _build
+    from libbicos_tpu_torch.kernels.agree import agree_cuda
+    from libbicos_tpu_torch.kernels.hamming import row_minima_words
+    from libbicos_tpu_torch.kernels.transform import descriptor_words_cuda
+
+    if "jax" in sys.modules or "libbicos_tpu" in sys.modules:
+        fail("the port pulled in jax or the JAX package")
+
+    # Phase 1: card, versions, build.
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+    fresh = not _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel library: {_build.library_path().name}, "
+          f"{'built' if fresh else 'found'} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    log = _build.library_path().with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+    dev = torch.device("cuda", 0)
+
+    # Phase 2: each kernel against its plain version.
+    n, h, w = HEADLINE
+    mode = bicos.TransformMode.LIMITED
+    t0 = time.perf_counter()
+    s0n, s1n, truth = synthetic_stack_pair(n, h, w)
+    print(f"headline input made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    s0 = torch.from_numpy(s0n).to(dev)
+    s1 = torch.from_numpy(s1n).to(dev)
+    truth = torch.from_numpy(truth).to(dev)
+    band = slice(1000, 1064)
+    compare_case(
+        torch, "band n=33 64x3300 u8 LIMITED", s0[:, band].contiguous(),
+        s1[:, band].contiguous(), mode, (STEP, None))
+    r0, r1, _ = synthetic_stack_pair(9, 7, 1001, dtype=np.uint16, seed=7)
+    compare_case(
+        torch, "ragged n=9 7x1001 u16 FULL", torch.from_numpy(r0).to(dev),
+        torch.from_numpy(r1).to(dev), bicos.TransformMode.FULL,
+        (STEP, 0.25, None))
+    torch.cuda.synchronize()
+    print("phase 2: every kernel agrees with its plain version", flush=True)
+
+    # Phase 3: the headline call at full size.
+    cfg = bicos.Config(nxcorr_threshold=THRESHOLD, subpixel_step=STEP,
+                       min_variance=MIN_VARIANCE, mode=mode,
+                       variant=bicos.NoDuplicates())
+
+    def headline(backend="cuda"):
+        return bicos.match(s0, s1, cfg, corrmap=True, backend=backend)
+
+    _build.reset_launch_counts()
+    d1, c1 = headline()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    for k, v in launches.items():
+        if v < 1:
+            fail(f"the headline call never launched the {k} kernel")
+    d2, c2 = headline()
+    for a, b, what in ((d1, d2, "disparity"), (c1, c2, "corrmap")):
+        if not (torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))):
+            fail(f"two headline runs gave different {what}")
+    if d1.shape != (h, w) or d1.dtype != torch.float32:
+        fail(f"headline disparity is {tuple(d1.shape)} {d1.dtype}")
+    valid = ~torch.isnan(d1)
+    if not bool(torch.isfinite(d1[valid]).all()):
+        fail("valid disparities are not finite")
+    share = float(valid.float().mean())
+    if share <= 0:
+        fail("no valid pixel in the headline output")
+    near = float(((d1 - truth.float()).abs() <= 1.0)[valid].float().mean())
+    print(f"headline: valid share {share:.6f}, valid pixels within 1 px of "
+          f"the synthetic truth {near:.6f}, launches {launches}", flush=True)
+
+    # Each kernel against its plain version at the shapes the call gives it.
+    check_transform(torch, "headline", (s0, s1), mode)
+    w0 = descriptor_words_cuda(s0, mode)
+    w1 = descriptor_words_cuda(s1, mode)
+    disp = ts._finish_nodupes(*check_scan(torch, "headline", w0, w1), w)
+    mv = MIN_VARIANCE * n
+    check_agree(torch, "headline", disp, s0, s1, THRESHOLD, STEP, mv)
+    print("phase 3: at the headline shapes every kernel agrees with its "
+          "plain version", flush=True)
+
+    # The call's own working set: its peak over what was held before it
+    # (the inputs, and the maps and words kept for the checks above).
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call_ms = time_ms(torch, headline)
+    peak = torch.cuda.max_memory_allocated()
+    plain_call_ms = time_ms(torch, lambda: headline("torch"), reps=1,
+                            warm=0)
+    timings = {
+        "transform": (
+            time_ms(torch, lambda: descriptor_words_cuda(s0, mode)),
+            time_ms(torch, lambda: td.descriptor_words(s0, mode), reps=3)),
+        "hamming": (
+            time_ms(torch, lambda: row_minima_words(w0, w1, True)),
+            time_ms(torch, lambda: ts.row_minima_torch_words(w0, w1, True),
+                    reps=1, warm=0)),
+        "agree": (
+            time_ms(torch, lambda: agree_cuda(disp, s0, s1, THRESHOLD, STEP,
+                                              mv)),
+            time_ms(torch, lambda: ta.agree_subpixel(disp, s0, s1, THRESHOLD,
+                                                     STEP, mv), reps=3)),
+    }
+    print(f"headline call: {call_ms:.3f} ms with the kernels, "
+          f"{plain_call_ms:.1f} ms plain; peak device memory {peak} bytes, "
+          f"of which {peak - held} above what was held before the call "
+          f"({card})", flush=True)
+    for k, (kms, pms) in timings.items():
+        print(f"  {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms ({card})",
+              flush=True)
+    print(json.dumps({"headline": {
+        "shape": list(HEADLINE), "dtype": "uint8", "mode": "LIMITED",
+        "threshold": THRESHOLD, "min_variance": MIN_VARIANCE, "step": STEP,
+        "ms": call_ms, "plain_ms": plain_call_ms,
+        "stacks_per_s": 1000.0 / call_ms, "peak_bytes": peak,
+        "call_peak_bytes": peak - held,
+        "valid_share": share, "within_1px_of_truth": near,
+        "card": card}}), flush=True)
+    kernels = [
+        {"name": k, "route": "cuda", "source": SOURCES[k][0],
+         "replaces": SOURCES[k][1], "launches": launches[k],
+         "max_abs_err": ERRS[k], "ms": timings[k][0],
+         "plain_ms": timings[k][1]}
+        for k in ("transform", "hamming", "agree")
+    ]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,155 @@
+"""NXCORR validation ("agree") and subpixel refinement, plain PyTorch, f32.
+
+Same semantics as ``libbicos_tpu.agree`` (and the reference's
+``agree.hpp``):
+
+* NXCORR at the matched column ``col1 = col - d``; a variance below
+  ``minvar`` (already scaled by n) gives -1; pixels below the threshold
+  become invalid; out-of-bounds matches are invalid and leave the corrmap
+  NaN.
+* A zero-variance series without ``minvar`` gives NaN, and ``NaN <
+  threshold`` is false, so the pixel is kept.
+* Subpixel: a per-shot parabola through the right samples at col1-1, col1,
+  col1+1, swept over the f32-accumulated x grid; samples are rounded half
+  to even and cast modularly to the input width before NXCORR; only a
+  strictly better NXCORR moves the best x; border columns fall back to the
+  integer check.
+
+Every sum is a Python loop over shots, so it runs serially in shot order,
+each product rounded before its add (the JAX XLA path's arithmetic). This
+module is the plain version beside the agree kernel (``kernels/agree.py``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+INVALID_I16 = -32768
+
+
+def subpixel_xgrid(step: float) -> List[float]:
+    """The reference's f32-accumulated sweep ``for (x = -1; x <= 1; x +=
+    step)``; at step 0.1 the drift drops x = 1.0 (20 values)."""
+    xs = []
+    x = np.float32(-1.0)
+    while x <= np.float32(1.0):
+        xs.append(float(x))
+        x = np.float32(x + np.float32(step))
+    return xs
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(np.float32(v), dtype=torch.float32, device=device)
+
+
+def _stats(series: torch.Tensor):
+    """``(n, H, W)`` f32 series -> (diff ``(n, H, W)``, var ``(H, W)``)."""
+    n = series.shape[0]
+    mean = torch.zeros_like(series[0])
+    for t in range(n):
+        mean = mean + series[t]
+    mean = mean / _f32(n, series.device)
+    diff = series - mean
+    var = torch.zeros_like(mean)
+    for t in range(n):
+        var = var + diff[t] * diff[t]
+    return diff, var
+
+
+def _nxcorr_from(diff0, var0, series1, minvar: Optional[float]):
+    """NXCORR of cached left stats against a right series."""
+    diff1, var1 = _stats(series1)
+    covar = torch.zeros_like(var0)
+    for t in range(diff0.shape[0]):
+        covar = covar + diff0[t] * diff1[t]
+    nxc = covar / torch.sqrt(var0 * var1)
+    if minvar is not None:
+        mv = _f32(minvar, var0.device)
+        nxc = torch.where((var0 < mv) | (var1 < mv), _f32(-1.0, var0.device),
+                          nxc)
+    return nxc
+
+
+def _matched(disp: torch.Tensor, w: int, w1: int):
+    d = disp.to(torch.int32)
+    col = torch.arange(w, dtype=torch.int32, device=disp.device)[None, :]
+    col1 = col - d
+    keep = (disp != INVALID_I16) & (col1 >= 0) & (col1 < w1)
+    return d, keep, col1.clamp(0, w1 - 1)
+
+
+def _gather_cols(stack_i32: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``stack[t, r, cols[r, c]]`` for every shot -> ``(n, H, W)`` int32."""
+    idx = cols.to(torch.int64)[None].expand(stack_i32.shape[0], -1, -1)
+    return torch.gather(stack_i32, 2, idx)
+
+
+def agree_integer(disp: torch.Tensor, stack0: torch.Tensor,
+                  stack1: torch.Tensor, threshold: float,
+                  minvar: Optional[float]):
+    """Integer-disparity NXCORR validation.
+
+    ``disp``: ``(H, W)`` int16 (-32768 invalid); stacks ``(n, H, W)``
+    u8/u16. Returns (int16 disparity, f32 corrmap with NaN where not
+    computed)."""
+    _, h, w = stack0.shape
+    w1 = stack1.shape[2]
+    d, keep, col1c = _matched(disp, w, w1)
+    s1sel = _gather_cols(stack1.to(torch.int32), col1c).to(torch.float32)
+    diff0, var0 = _stats(stack0.to(torch.int32).to(torch.float32))
+    nxc = _nxcorr_from(diff0, var0, s1sel, minvar)
+    nan = _f32(float("nan"), disp.device)
+    corr = torch.where(keep, nxc, nan)
+    final = keep & ~(nxc < _f32(threshold, disp.device))
+    out = torch.where(final, d, INVALID_I16).to(torch.int16)
+    return out, corr
+
+
+def agree_subpixel(disp: torch.Tensor, stack0: torch.Tensor,
+                   stack1: torch.Tensor, threshold: float, step: float,
+                   minvar: Optional[float]):
+    """Subpixel parabola-sweep NXCORR validation.
+
+    Returns (f32 disparity with NaN invalid, f32 corrmap)."""
+    dev = disp.device
+    mod = 0xFFFF if stack0.dtype == torch.uint16 else 0xFF
+    _, h, w = stack0.shape
+    w1 = stack1.shape[2]
+    d, keep, col1c = _matched(disp, w, w1)
+    border = (col1c == 0) | (col1c == w1 - 1)
+
+    s1 = stack1.to(torch.int32)
+    y1 = _gather_cols(s1, col1c).to(torch.float32)
+    y0 = _gather_cols(s1, (col1c - 1).clamp(0, w1 - 1)).to(torch.float32)
+    y2 = _gather_cols(s1, (col1c + 1).clamp(0, w1 - 1)).to(torch.float32)
+    diff0, var0 = _stats(stack0.to(torch.int32).to(torch.float32))
+
+    half, two = _f32(0.5, dev), _f32(2.0, dev)
+    pa = half * (y0 - two * y1 + y2)
+    pb = half * (y2 - y0)
+
+    best = torch.full((h, w), -1.0, dtype=torch.float32, device=dev)
+    best_x = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    for x in subpixel_xgrid(step):
+        xf = _f32(x, dev)
+        # (a*x)*x, left to right like the reference; round half to even,
+        # then the modular cast to the input width.
+        v = torch.round(((pa * xf) * xf + pb * xf) + y1)
+        interp = (v.to(torch.int32) & mod).to(torch.float32)
+        nxc = _nxcorr_from(diff0, var0, interp, minvar)
+        upd = best < nxc
+        best = torch.where(upd, nxc, best)
+        best_x = torch.where(upd, xf, best_x)
+
+    nxc_border = _nxcorr_from(diff0, var0, y1, minvar)
+    corr_val = torch.where(border, nxc_border, best)
+    nan = _f32(float("nan"), dev)
+    corr = torch.where(keep, corr_val, nan)
+    final = keep & ~(corr_val < _f32(threshold, dev))
+    dg = d.to(torch.float32)
+    ret = torch.where(border, dg, dg - best_x)
+    out = torch.where(final, ret, nan)
+    return out, corr

@@ -1,0 +1,69 @@
+"""Hamming row-scan kernel (``csrc/hamming.cu``) and the stack search.
+
+* :func:`row_minima_words` is the Hopper counterpart of the Pallas
+  ``libbicos_tpu/kernels/hamming.py::_minima_kernel`` (via
+  ``row_minima_pallas_words``); its plain version is
+  :func:`libbicos_tpu_torch.search.row_minima_torch_words`.
+* :func:`row_minima_stack` is the counterpart of the fused Pallas
+  ``_minima_kernel_bf16_stack`` (via ``row_minima_stack``): the transform
+  kernel on both stacks, then the scan.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import TransformMode
+from ..search import row_minima_torch_words
+from . import _build
+from .transform import descriptor_words_cuda
+
+
+def row_minima_words(
+    words0: torch.Tensor, words1: torch.Tensor, need_last: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """First (and, with ``need_last``, last) right column of least Hamming
+    distance for every left pixel: ``(H, W0)`` int32 each; ``last`` is None
+    without ``need_last``.
+
+    ``words0``: ``(H, W0, nw)`` int32, ``words1``: ``(H, W1, nw)`` int32.
+    A CPU tensor goes through the plain scan; CUDA tensors launch the
+    kernel."""
+    if words0.device.type == "cpu" and words1.device.type == "cpu":
+        _, first, last = row_minima_torch_words(words0, words1, need_last)
+        return first, last
+    _build.require_cuda("row_minima_words", words0, words1)
+    if (words0.dim() != 3 or words1.dim() != 3
+            or words0.dtype != torch.int32 or words1.dtype != torch.int32):
+        raise ValueError("words must be (H, W, nw) int32 tensors")
+    h, w0, nw = words0.shape
+    if words1.shape[0] != h or words1.shape[2] != nw:
+        raise ValueError(
+            f"words shapes disagree: {tuple(words0.shape)} vs "
+            f"{tuple(words1.shape)}")
+    w1 = words1.shape[1]
+    if not 1 <= nw <= 8:
+        raise ValueError(f"{nw} descriptor words: the kernel takes 1 to 8")
+    if h * w0 * w1 == 0:
+        raise ValueError("row_minima_words needs non-empty rows")
+    first = torch.empty((h, w0), dtype=torch.int32, device=words0.device)
+    last = torch.empty_like(first) if need_last else None
+    rc = _build.library().bicos_row_minima(
+        words0.device.index, words0.data_ptr(), words1.data_ptr(),
+        first.data_ptr(), last.data_ptr() if need_last else None,
+        h, w0, w1, nw, int(need_last), _build.stream_of(words0))
+    _build.check(rc, "hamming")
+    _build.count_launch("hamming")
+    return first, last
+
+
+def row_minima_stack(stack0: torch.Tensor, stack1: torch.Tensor, *,
+                     mode: TransformMode, need_last: bool):
+    """Transform + scan straight from ``(n, H, W)`` stacks; returns
+    ``(None, first, last)`` like the JAX ``row_minima_stack``."""
+    first, last = row_minima_words(
+        descriptor_words_cuda(stack0, mode),
+        descriptor_words_cuda(stack1, mode), need_last)
+    return None, first, last

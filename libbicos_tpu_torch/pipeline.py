@@ -1,0 +1,174 @@
+"""End-to-end BICOS matching: transform, search, agree.
+
+The counterpart of ``libbicos_tpu.pipeline``, eager PyTorch:
+
+* int16 disparity (-32768 invalid) without subpixel refinement, float32
+  with NaN invalid with it;
+* ``min_variance`` is scaled by the stack size before use (the reference
+  quirk);
+* ``corrmap`` returns the NXCORR map too (needs a threshold).
+
+``backend``: ``"torch"`` runs the plain versions on the tensors' device,
+``"cuda"`` the hand-written kernels, ``"auto"`` resolves to ``"cuda"`` when
+``device`` (or, without it, the input) is CUDA. ``device`` moves the
+inputs there first; ``"cuda"`` with CPU inputs and no ``device`` moves them
+to the current CUDA device, and raises where there is none.
+
+Not ported yet, and refused with ``NotImplementedError`` by both backends:
+the Consistency variant, ``disparity_range`` and DOUBLE precision.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import agree as _agree
+from . import search as _search
+from .config import Config, NoDuplicates, Precision, validate_stack
+
+
+def _as_tensor(x, backend: str, device) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    elif not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a tensor or numpy array, got {type(x)}")
+    if device is None and backend == "cuda" and x.device.type != "cuda":
+        device = "cuda"
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("a CUDA device was asked for but none is "
+                               "available")
+        x = x.to(device)
+    return x.contiguous()
+
+
+def _validate_inputs(stack0: torch.Tensor, stack1: torch.Tensor) -> None:
+    if stack0.dim() != 3 or stack1.dim() != 3:
+        raise ValueError("stacks must have shape (n, H, W)")
+    if stack0.shape != stack1.shape:
+        raise ValueError(
+            f"stack shapes differ: {tuple(stack0.shape)} vs "
+            f"{tuple(stack1.shape)}")
+    if stack0.dtype != stack1.dtype:
+        raise ValueError("stack dtypes differ")
+    if stack0.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(
+            "bad input depths, only uint8 and uint16 are supported")
+    if stack0.device != stack1.device:
+        raise ValueError("stacks lie on different devices")
+
+
+def _check_ported(cfg: Config) -> None:
+    if not isinstance(cfg.variant, NoDuplicates):
+        raise NotImplementedError("the Consistency variant is not ported yet")
+    if cfg.disparity_range is not None:
+        raise NotImplementedError("disparity_range is not ported yet")
+    if cfg.precision != Precision.SINGLE:
+        raise NotImplementedError("DOUBLE precision is not ported yet")
+
+
+def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
+          backend: str = "auto", device=None):
+    """Match two multishot stereo stacks.
+
+    Args:
+      stack0/stack1: ``(n, H, W)`` uint8 or uint16 rectified stacks (left,
+        right), as tensors or numpy arrays.
+      cfg: matching configuration.
+      corrmap: also return the NXCORR map (float32, NaN where not
+        computed). Requires ``cfg.nxcorr_threshold``.
+      backend: ``"auto"`` | ``"torch"`` | ``"cuda"``.
+      device: where to run; the inputs are moved there.
+
+    Returns:
+      ``disparity`` on the run's device, or ``(disparity, corrmap)``.
+    """
+    if backend not in _search.BACKENDS:
+        raise ValueError(
+            f"backend must be one of {_search.BACKENDS}, got {backend!r}")
+    stack0 = _as_tensor(stack0, backend, device)
+    stack1 = _as_tensor(stack1, backend, device)
+    _validate_inputs(stack0, stack1)
+    n = stack0.shape[0]
+    validate_stack(n, cfg.mode)
+    if corrmap and cfg.nxcorr_threshold is None:
+        raise ValueError("corrmap requires cfg.nxcorr_threshold")
+    _check_ported(cfg)
+    backend = _search.resolve_backend(backend, stack0, stack1)
+
+    disp = _search.search_stack(stack0, stack1, cfg.mode, cfg.variant,
+                                backend=backend)
+    corr = None
+    if cfg.nxcorr_threshold is not None:
+        minvar = None if cfg.min_variance is None else cfg.min_variance * n
+        step = cfg.subpixel_step
+        if backend == "cuda":
+            from .kernels.agree import agree_cuda
+
+            out_f, corr = agree_cuda(disp, stack0, stack1,
+                                     cfg.nxcorr_threshold, step, minvar)
+            if step is not None:
+                disp = out_f
+            else:
+                disp = torch.where(
+                    torch.isnan(out_f), _agree.INVALID_I16,
+                    torch.nan_to_num(out_f).to(torch.int32)).to(torch.int16)
+        elif step is not None:
+            disp, corr = _agree.agree_subpixel(
+                disp, stack0, stack1, cfg.nxcorr_threshold, step, minvar)
+        else:
+            disp, corr = _agree.agree_integer(
+                disp, stack0, stack1, cfg.nxcorr_threshold, minvar)
+    if corrmap:
+        return disp, corr
+    return disp
+
+
+def match_batched(stacks0, stacks1, cfg: Config = Config(), *,
+                  corrmap: bool = False, backend: str = "auto", device=None):
+    """Batched matching over ``(batch, n, H, W)`` stacks: rows are
+    independent, so the batch is folded into the row axis and matched in
+    one call."""
+    flat0, flat1, (b, _, _) = _fold_batch(stacks0, stacks1)
+    return match_batched_folded(flat0, flat1, b, cfg, corrmap=corrmap,
+                                backend=backend, device=device)
+
+
+def match_batched_folded(flat0, flat1, batch: int, cfg: Config = Config(),
+                         *, corrmap: bool = False, backend: str = "auto",
+                         device=None):
+    """Batched matching on pre-folded ``(n, batch*H, W)`` stacks; returns
+    per-pair ``(batch, H, W)`` maps."""
+    if flat0.ndim != 3 or tuple(flat0.shape) != tuple(flat1.shape):
+        raise ValueError("folded stacks must share one (n, batch*H, W) shape")
+    if batch < 1 or flat0.shape[1] % batch:
+        raise ValueError(
+            f"row count {flat0.shape[1]} is not a multiple of batch {batch}")
+    h = flat0.shape[1] // batch
+    w = flat0.shape[2]
+    out = match(flat0, flat1, cfg, corrmap=corrmap, backend=backend,
+                device=device)
+    if corrmap:
+        disp, corr = out
+        return disp.reshape(batch, h, w), corr.reshape(batch, h, w)
+    return out.reshape(batch, h, w)
+
+
+def _fold_batch(stacks0, stacks1):
+    """Fold ``(batch, n, H, W)`` pairs into ``(n, batch*H, W)``. Shapes must
+    match exactly: a coincidental ``batch*H`` match would pair rows of
+    different images."""
+    stacks0 = torch.as_tensor(stacks0)
+    stacks1 = torch.as_tensor(stacks1)
+    if stacks0.dim() != 4 or stacks1.dim() != 4:
+        raise ValueError("batched stacks must have shape (batch, n, H, W)")
+    if stacks0.shape != stacks1.shape:
+        raise ValueError(
+            f"batched stacks must have identical shapes, got "
+            f"{tuple(stacks0.shape)} vs {tuple(stacks1.shape)}")
+    b, n, h, w = stacks0.shape
+    flat0 = stacks0.movedim(0, 1).reshape(n, b * h, w)
+    flat1 = stacks1.movedim(0, 1).reshape(n, b * h, w)
+    return flat0, flat1, (b, h, w)

@@ -1,0 +1,161 @@
+"""NXCORR validation of the port (plain agree and the agree kernel's
+wrapper on CPU tensors) against the JAX package: disparities exactly equal
+(same NaN mask for float output), corrmap within CORR_TOL, against the XLA
+agree and the Pallas agree kernel run in interpret mode."""
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_stack_pair
+
+from libbicos_tpu import NoDuplicates as JNoDup
+from libbicos_tpu import TransformMode as JMode
+from libbicos_tpu import agree as ja
+from libbicos_tpu import search as js
+from libbicos_tpu.kernels.agree import agree_pallas
+
+from libbicos_tpu_torch import agree as ta
+from libbicos_tpu_torch.kernels.agree import agree_cuda
+
+# The JAX package's bar for its Pallas agree against its XLA path
+# (tests/test_agree_kernel.py): sums in another order or with fmas move
+# the NXCORR by a few ulps.
+CORR_TOL = dict(rtol=4e-6, atol=4e-6)
+
+
+def _assert_corr_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    m = ~np.isnan(want)
+    np.testing.assert_allclose(got[m], want[m], **CORR_TOL)
+
+
+def _assert_disp_equal(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype
+    if got.dtype == np.float32:
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        m = ~np.isnan(want)
+        np.testing.assert_array_equal(got[m], want[m])
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def _case(rng, n, h, w, dtype=np.uint8):
+    """Seeded stacks and their NoDuplicates disparity, with border and
+    out-of-bounds matches planted in the first row."""
+    s0, s1, _ = make_stack_pair(rng, n, h, w, dtype)
+    disp = np.asarray(js.search_stack(s0, s1, JMode.LIMITED, JNoDup(),
+                                      backend="xla")).copy()
+    disp[0, 3] = 3        # col1 = 0: left border
+    disp[0, w - 2] = -1   # col1 = w-1: right border
+    disp[0, 5] = 9        # col1 < 0: out of bounds
+    disp[0, 6] = -w       # col1 >= w: out of bounds
+    return s0, s1, disp
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("step", [0.1, 0.25, 0.5, 0.3, 0.07, 1.0, 2.5])
+def test_subpixel_xgrid_matches(step):
+    assert ta.subpixel_xgrid(step) == ja.subpixel_xgrid(step)
+
+
+def test_xgrid_drops_one_at_step_0_1():
+    xs = ta.subpixel_xgrid(0.1)
+    assert len(xs) == 20 and 1.0 not in xs and xs[0] == -1.0
+
+
+@pytest.mark.parametrize("threshold, minvar", [(0.5, None), (0.5, 40.0),
+                                               (-1.0, None)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("n", [2, 4, 9, 33])
+def test_agree_integer_matches_xla(rng, n, dtype, threshold, minvar):
+    s0, s1, disp = _case(rng, n, 4, 40, dtype)
+    want_d, want_c = ja.agree_integer(disp, s0, s1, threshold, minvar)
+    got_d, got_c = ta.agree_integer(*_t(disp, s0, s1), threshold, minvar)
+    _assert_disp_equal(got_d.numpy(), want_d)
+    _assert_corr_close(got_c.numpy(), want_c)
+
+
+@pytest.mark.parametrize("step, minvar", [(0.1, 66.0), (0.25, None),
+                                          (0.5, 20.0)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("n", [2, 9, 33])
+def test_agree_subpixel_matches_xla(rng, n, dtype, step, minvar):
+    s0, s1, disp = _case(rng, n, 4, 40, dtype)
+    want_d, want_c = ja.agree_subpixel(disp, s0, s1, 0.6, step, minvar)
+    got_d, got_c = ta.agree_subpixel(*_t(disp, s0, s1), 0.6, step, minvar)
+    _assert_disp_equal(got_d.numpy(), want_d)
+    _assert_corr_close(got_c.numpy(), want_c)
+
+
+def test_agree_subpixel_threshold_minus_one(rng):
+    s0, s1, disp = _case(rng, 9, 4, 40)
+    want_d, want_c = ja.agree_subpixel(disp, s0, s1, -1.0, 0.1, None)
+    got_d, got_c = ta.agree_subpixel(*_t(disp, s0, s1), -1.0, 0.1, None)
+    _assert_disp_equal(got_d.numpy(), want_d)
+    _assert_corr_close(got_c.numpy(), want_c)
+
+
+@pytest.mark.parametrize("minvar", [None, 5.0])
+@pytest.mark.parametrize("step", [None, 0.25])
+def test_flat_series(rng, step, minvar):
+    """Zero-variance series: NaN NXCORR keeps the pixel (reference quirk);
+    with minvar the NXCORR is -1 and the pixel is dropped."""
+    n, h, w = 6, 3, 24
+    s0, s1, disp = _case(rng, n, h, w)
+    s0[:, 1, :] = 77
+    s1[:, 2, :] = 200
+    args = (disp, s0, s1, 0.5)
+    if step is None:
+        want_d, want_c = ja.agree_integer(*args, minvar)
+        got_d, got_c = ta.agree_integer(*_t(disp, s0, s1), 0.5, minvar)
+    else:
+        want_d, want_c = ja.agree_subpixel(*args, step, minvar)
+        got_d, got_c = ta.agree_subpixel(*_t(disp, s0, s1), 0.5, step,
+                                         minvar)
+    _assert_disp_equal(got_d.numpy(), want_d)
+    _assert_corr_close(got_c.numpy(), want_c)
+    flat = got_c.numpy()[1][disp[1] != -32768]
+    if minvar is not None:
+        assert (flat == -1.0).all()
+    elif step is None:
+        assert np.isnan(flat).all()
+    else:
+        # Every swept NXCORR is NaN, so the best stays at its initial -1;
+        # only border pixels (the integer check) keep NaN.
+        assert np.all((flat == -1.0) | np.isnan(flat))
+
+
+@pytest.mark.parametrize("n, dtype, step, minvar", [
+    (33, np.uint8, 0.1, 66.0),     # the headline configuration
+    (33, np.uint8, None, None),
+    (9, np.uint16, 0.25, 18.0),    # u16: the window-gather Pallas kernel
+    (4, np.uint16, None, 8.0),
+    (3, np.uint8, 0.5, None),
+])
+def test_kernel_wrapper_matches_pallas_agree(rng, n, dtype, step, minvar):
+    """The agree kernel's wrapper (its plain versions on CPU tensors)
+    against the Pallas agree kernels in interpret mode."""
+    s0, s1, disp = _case(rng, n, 4, 40, dtype)
+    thr = 0.96 if n == 33 else 0.5
+    want_o, want_c = agree_pallas(disp, s0, s1, thr, step, minvar,
+                                  interpret=True)
+    got_o, got_c = agree_cuda(*_t(disp, s0, s1), thr, step, minvar)
+    assert got_o.dtype == torch.float32 and got_c.dtype == torch.float32
+    _assert_disp_equal(got_o.numpy(), np.asarray(want_o))
+    _assert_corr_close(got_c.numpy(), want_c)
+
+
+def test_out_of_bounds_and_border(rng):
+    s0, s1, disp = _case(rng, 5, 2, 20)
+    out, corr = ta.agree_subpixel(*_t(disp, s0, s1), -1.0, 0.25, None)
+    out, corr = out.numpy(), corr.numpy()
+    assert np.isnan(out[0, 5]) and np.isnan(corr[0, 5])
+    assert np.isnan(out[0, 6]) and np.isnan(corr[0, 6])
+    # Border columns take the integer check: the output is d itself.
+    assert out[0, 3] == 3.0 and out[0, 18] == -1.0

@@ -1,0 +1,105 @@
+"""The CUDA kernels of the port against their plain PyTorch versions, on the
+card. These tests need an NVIDIA GPU (marker ``cuda``) and skip without
+one; run them there with ``python -m pytest tests/test_torch_cuda.py``.
+``chip_smoke.py`` makes the same comparisons at the headline shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+import libbicos_tpu_torch as tb
+from libbicos_tpu_torch import agree as ta
+from libbicos_tpu_torch import descriptor as td
+from libbicos_tpu_torch import search as ts
+from libbicos_tpu_torch.io import synthetic_stack_pair
+from libbicos_tpu_torch.kernels import _build
+from libbicos_tpu_torch.kernels.agree import agree_cuda
+from libbicos_tpu_torch.kernels.hamming import row_minima_words
+from libbicos_tpu_torch.kernels.transform import descriptor_words_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _pair(dev, n, h, w, dtype=np.uint8, seed=11):
+    s0, s1, _ = synthetic_stack_pair(n, h, w, dtype=dtype, seed=seed)
+    return torch.from_numpy(s0).to(dev), torch.from_numpy(s1).to(dev)
+
+
+@pytest.mark.parametrize("n, mode, dtype", [
+    (2, "LIMITED", np.uint8), (3, "LIMITED", np.uint16),
+    (33, "LIMITED", np.uint8), (65, "LIMITED", np.uint16),
+    (4, "FULL", np.uint8), (16, "FULL", np.uint16),
+])
+def test_transform_kernel_bit_identical(dev, n, mode, dtype):
+    s0, _ = _pair(dev, n, 9, 300, dtype)
+    m = tb.TransformMode[mode]
+    assert torch.equal(descriptor_words_cuda(s0, m),
+                       td.descriptor_words(s0, m))
+
+
+@pytest.mark.parametrize("n, mode, w", [
+    (2, "LIMITED", 70), (33, "LIMITED", 1100), (16, "FULL", 513),
+    (65, "LIMITED", 129),
+])
+def test_scan_kernel_equal(dev, n, mode, w):
+    s0, s1 = _pair(dev, n, 5, w)
+    m = tb.TransformMode[mode]
+    w0, w1 = td.descriptor_words(s0, m), td.descriptor_words(s1, m)
+    first, last = row_minima_words(w0, w1, True)
+    _, pf, pl = ts.row_minima_torch_words(w0, w1, True)
+    assert torch.equal(first, pf) and torch.equal(last, pl)
+    f2, none = row_minima_words(w0, w1, False)
+    assert none is None and torch.equal(f2, pf)
+
+
+@pytest.mark.parametrize("n, dtype, step, minvar", [
+    (33, np.uint8, 0.1, 66.0), (33, np.uint8, None, None),
+    (9, np.uint16, 0.25, 18.0), (65, np.uint16, 0.5, None),
+    (2, np.uint8, None, 4.0),
+])
+def test_agree_kernel_matches_plain(dev, n, dtype, step, minvar):
+    s0, s1 = _pair(dev, n, 6, 200, dtype)
+    disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
+                           tb.NoDuplicates(), backend="torch")
+    out, corr = agree_cuda(disp, s0, s1, 0.5, step, minvar)
+    if step is None:
+        po, pc = ta.agree_integer(disp, s0, s1, 0.5, minvar)
+        po = torch.where(po == ta.INVALID_I16,
+                         torch.tensor(float("nan"), device=dev), po.float())
+    else:
+        po, pc = ta.agree_subpixel(disp, s0, s1, 0.5, step, minvar)
+    assert torch.equal(torch.isnan(corr), torch.isnan(pc))
+    m = ~torch.isnan(pc)
+    torch.testing.assert_close(corr[m], pc[m], rtol=4e-6, atol=4e-6)
+    assert torch.equal(torch.isnan(out), torch.isnan(po))
+    assert torch.equal(out[~torch.isnan(po)], po[~torch.isnan(po)])
+
+
+def test_match_cuda_launches_every_kernel_and_matches_plain(dev):
+    s0, s1 = _pair(dev, 33, 16, 400)
+    cfg = tb.Config(nxcorr_threshold=0.96, subpixel_step=0.1,
+                    min_variance=2.0)
+    _build.reset_launch_counts()
+    got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
+    counts = _build.launch_counts()
+    assert counts == {"transform": 2, "hamming": 1, "agree": 1}
+    want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
+    assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
+    v = ~torch.isnan(want_d)
+    assert torch.equal(got_d[v], want_d[v])
+    m = ~torch.isnan(want_c)
+    torch.testing.assert_close(got_c[m], want_c[m], rtol=4e-6, atol=4e-6)
+
+
+def test_wrappers_reject_cpu_mixed_devices(dev):
+    s0, _ = _pair(dev, 5, 2, 16)
+    words = descriptor_words_cuda(s0, tb.TransformMode.LIMITED)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        row_minima_words(words, words.cpu(), True)

@@ -1,0 +1,175 @@
+"""Hamming row scan and NoDuplicates search of the port (plain scan and the
+scan kernel's wrappers on CPU tensors) against the JAX package: first/last
+argmin and int16 disparities exactly equal to the XLA scan and to the
+Pallas scan kernels run in interpret mode."""
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_stack_pair
+
+from libbicos_tpu import NoDuplicates as JNoDup
+from libbicos_tpu import TransformMode as JMode
+from libbicos_tpu import descriptor as jd
+from libbicos_tpu import search as js
+from libbicos_tpu.config import actual_bits
+from libbicos_tpu.kernels.hamming import (
+    row_minima_pallas_words,
+    row_minima_stack as j_row_minima_stack,
+)
+
+from libbicos_tpu_torch import Consistency, NoDuplicates
+from libbicos_tpu_torch import TransformMode as TMode
+from libbicos_tpu_torch import search as ts
+from libbicos_tpu_torch.kernels.hamming import (
+    row_minima_stack,
+    row_minima_words,
+)
+
+
+def _i32(words) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(words).view(np.int32).copy())
+
+
+def _words(rng, n, h, w, mode="LIMITED", dtype=np.uint8):
+    s0, s1, _ = make_stack_pair(rng, n, h, w, dtype)
+    w0 = np.asarray(jd.descriptor_words(s0, JMode[mode]))
+    w1 = np.asarray(jd.descriptor_words(s1, JMode[mode]))
+    return s0, s1, w0, w1
+
+
+@pytest.mark.parametrize("need_last", [True, False])
+@pytest.mark.parametrize("n, mode, budget", [
+    (2, "LIMITED", 1 << 26),
+    (4, "LIMITED", 100),   # forces row chunks
+    (9, "FULL", 1 << 26),
+    (33, "LIMITED", 37),   # forces row and column chunks
+    (17, "FULL", 500),
+])
+def test_plain_scan_matches_xla(rng, n, mode, budget, need_last):
+    _, _, w0, w1 = _words(rng, n, 5, 48, mode)
+    cost, first, last = js.row_minima_xla_words(w0, w1, need_last)
+    gc, gf, gl = ts.row_minima_torch_words(_i32(w0), _i32(w1), need_last,
+                                           pair_budget=budget)
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(cost))
+    np.testing.assert_array_equal(gf.numpy(), np.asarray(first))
+    if need_last:
+        np.testing.assert_array_equal(gl.numpy(), np.asarray(last))
+    else:
+        assert gl is None
+
+
+@pytest.mark.parametrize("n, mode, dtype", [
+    (33, "LIMITED", np.uint8),
+    (4, "LIMITED", np.uint16),
+    (9, "FULL", np.uint8),
+])
+def test_words_wrapper_matches_pallas_words_kernel(rng, n, mode, dtype):
+    _, _, w0, w1 = _words(rng, n, 4, 150, mode, dtype)
+    _, want_f, want_l = row_minima_pallas_words(
+        w0, w1, nbits=actual_bits(n, JMode[mode]), need_last=True,
+        interpret=True)
+    f, last = row_minima_words(_i32(w0), _i32(w1), True)
+    np.testing.assert_array_equal(f.numpy(), np.asarray(want_f))
+    np.testing.assert_array_equal(last.numpy(), np.asarray(want_l))
+    f2, none = row_minima_words(_i32(w0), _i32(w1), False)
+    assert none is None and torch.equal(f2, f)
+
+
+@pytest.mark.parametrize("n, mode, dtype", [
+    (33, "LIMITED", np.uint8),
+    (9, "FULL", np.uint16),
+    (4, "LIMITED", np.uint8),
+])
+def test_stack_wrapper_matches_pallas_stack_kernel(rng, n, mode, dtype):
+    """Transform + scan from raw stacks against the fused Pallas kernel."""
+    s0, s1, _ = make_stack_pair(rng, n, 3, 140, dtype)
+    none, want_f, want_l = j_row_minima_stack(
+        s0, s1, mode=JMode[mode], need_last=True, interpret=True)
+    got = row_minima_stack(torch.from_numpy(s0), torch.from_numpy(s1),
+                           mode=TMode[mode], need_last=True)
+    assert none is None and got[0] is None
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_f))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want_l))
+
+
+def test_duplicate_columns_first_ne_last(rng):
+    """Repeated right columns make first != last; NoDuplicates invalidates
+    exactly those pixels, as the JAX search does."""
+    s0, s1, w0, w1 = _words(rng, 6, 3, 40)
+    w1 = w1.copy()
+    w1[:, 30:36] = w1[:, 5:11]  # every descriptor of 5..10 appears twice
+    w0 = w0.copy()
+    w0[:, 2:8] = w1[:, 5:11]
+    _, first, last = js.row_minima_xla_words(w0, w1, True)
+    _, gf, gl = ts.row_minima_torch_words(_i32(w0), _i32(w1), True)
+    np.testing.assert_array_equal(gf.numpy(), np.asarray(first))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(last))
+    assert (gf.numpy()[:, 2:8] != gl.numpy()[:, 2:8]).all()
+    nbits = actual_bits(6, JMode.LIMITED)
+    want = np.asarray(js.search_words(w0, w1, nbits, JNoDup(), "xla"))
+    got = ts.search_words(_i32(w0), _i32(w1), nbits, NoDuplicates())
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[:, 2:8] == -32768).all()
+
+
+@pytest.mark.parametrize("n, mode, dtype", [
+    (2, "LIMITED", np.uint8),
+    (3, "LIMITED", np.uint16),
+    (9, "FULL", np.uint16),
+    (33, "LIMITED", np.uint8),
+])
+def test_search_stack_matches_xla(rng, n, mode, dtype):
+    s0, s1, _ = make_stack_pair(rng, n, 4, 56, dtype)
+    want = np.asarray(js.search_stack(s0, s1, JMode[mode], JNoDup(),
+                                      backend="xla"))
+    for backend in ("auto", "torch"):
+        got = ts.search_stack(torch.from_numpy(s0), torch.from_numpy(s1),
+                              TMode[mode], NoDuplicates(), backend=backend)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ultrawide_packing_matches_xla(rng):
+    """Rows wider than PACK_K widen the packing (and the JAX scan goes
+    column-chunked); both must agree."""
+    w1 = np.asarray(rng.integers(0, 1 << 32, size=(1, 40000, 1),
+                                 dtype=np.uint64), dtype=np.uint32)
+    w1[0, 39000] = w1[0, 7]  # a duplicate across the chunk boundary
+    w0 = w1[:, [7, 100, 39999, 5]].copy()
+    cost, first, last = js.row_minima_xla_words(w0, w1, True)
+    gc, gf, gl = ts.row_minima_torch_words(_i32(w0), _i32(w1), True)
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(cost))
+    np.testing.assert_array_equal(gf.numpy(), np.asarray(first))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(last))
+    assert gf[0, 0] == 7 and gl[0, 0] == 39000
+
+
+def test_decode_packed_minima_matches():
+    mf = np.array([[3 * 32768 + 5, 17]], np.int32)
+    ml = np.array([[3 * 32768 + 40, 9]], np.int32)
+    want = js.decode_packed_minima(mf, ml, 64, True)
+    got = ts.decode_packed_minima(torch.from_numpy(mf), torch.from_numpy(ml),
+                                  64, True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_resolve_backend_rules():
+    cpu = torch.zeros(1)
+    assert ts.resolve_backend("auto", cpu) == "torch"
+    assert ts.resolve_backend("torch", cpu) == "torch"
+    assert ts.resolve_backend("auto", torch.zeros(1, device="meta")) == \
+        "torch"
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        ts.resolve_backend("cuda", cpu)
+    with pytest.raises(ValueError, match="backend"):
+        ts.resolve_backend("xla", cpu)
+
+
+def test_consistency_not_ported(rng):
+    s0, s1, _ = make_stack_pair(rng, 5, 2, 16)
+    with pytest.raises(NotImplementedError, match="Consistency"):
+        ts.search_stack(torch.from_numpy(s0), torch.from_numpy(s1),
+                        TMode.LIMITED, Consistency())
