@@ -7,22 +7,32 @@
    builds the CUDA kernels from ``libbicos_tpu_torch/csrc``.
 2. Compares each kernel with its plain PyTorch version on the card, at a
    full-width row band of the headline input (n=33, 64 x 3300, u8, LIMITED)
-   and at a ragged small shape (n=9, 7 x 1001, u16, FULL).
-3. Runs the headline call ``match(s0, s1, cfg, backend="cuda")`` at full
-   size (n=33, 2200 x 3300, u8, LIMITED, NoDuplicates, threshold 0.96,
-   min_variance 2.0, subpixel step 0.1) on synthetic input: every kernel
-   must have launched, two runs must agree, the valid share must be above
-   0. Each kernel is compared with its plain version again at the shapes
-   the call gives it, and the call and each kernel are timed (CUDA events,
-   median of 5 after a warm run) beside their plain versions.
+   and at a ragged small shape (n=9, 7 x 1001, u16, FULL): the scan
+   unranged and ranged (0, 511) and with a range that leaves no candidate,
+   the consistency scan with and without no_dupes and range (0, 511), and
+   the agree sweep. Then one 2 x 40000 consistency case (reverse minima in
+   global memory).
+3. Runs four full-size calls ``match(s0, s1, cfg, backend="cuda")`` (n=33,
+   2200 x 3300, u8, LIMITED, threshold 0.96, min_variance 2.0, subpixel
+   step 0.1) on synthetic input: A the NoDuplicates headline, B
+   Consistency(1, True), C NoDuplicates with disparity_range (0, 511), D
+   Consistency(1, True) with (0, 511). Each call's launch counts are set to
+   0 just before it and read just after, and must equal the kernels of its
+   path; two runs must agree; the valid share must be above 0. The call's
+   scan kernel and the agree kernel are compared with their plain versions
+   at the shapes the call gives them, and the call and its kernels are
+   timed (CUDA events, median of 5 after a warm run) beside their plain
+   versions (one run each).
 
-The bars: descriptor words bit-identical; first/last argmin equal; agree
-corrmaps with the same NaN mask and within 4e-6; disparities equal except
-at pixels whose plain corr lies within 4e-6 of the threshold, or whose
-best and runner-up sweep NXCORR lie within 4e-6 of each other (counted).
+The bars: descriptor words bit-identical; first/last argmins and reverse
+argmins equal, sentinels included; agree corrmaps with the same NaN mask
+and within 4e-6; disparities equal except at pixels whose plain corr lies
+within 4e-6 of the threshold, or whose best and runner-up sweep NXCORR lie
+within 4e-6 of each other (counted).
 
 Any failure exits non-zero. The last line is the device JSON object; the
-line before it lists the kernels with their launches, errors and times.
+line before it lists the kernels with their launches (summed over the four
+calls), errors and times.
 """
 
 import json
@@ -36,15 +46,25 @@ REPO = Path(__file__).resolve().parent
 TOL = 4e-6  # corrmap bar of the JAX package's own agree kernel
 THRESHOLD, MIN_VARIANCE, STEP = 0.96, 2.0, 0.1
 HEADLINE = (33, 2200, 3300)
+DRANGE = (0, 511)
 REPS = 5
+_H = "libbicos_tpu/kernels/hamming.py:"
+# Each CUDA kernel with every TPU kernel (file:line) it serves; transform.cu
+# is the descriptor half of every fused stack kernel.
 SOURCES = {
-    "transform": ("libbicos_tpu_torch/csrc/transform.cu",
-                  "libbicos_tpu/kernels/transform.py:32"),
-    "hamming": ("libbicos_tpu_torch/csrc/hamming.cu",
-                "libbicos_tpu/kernels/hamming.py:779"),
-    "agree": ("libbicos_tpu_torch/csrc/agree.cu",
-              "libbicos_tpu/kernels/agree.py:483"),
+    "transform": ("libbicos_tpu_torch/csrc/transform.cu", [
+        "libbicos_tpu/kernels/transform.py:32", _H + "779", _H + "715",
+        _H + "2007", _H + "890", _H + "1305", _H + "1037"]),
+    "hamming": ("libbicos_tpu_torch/csrc/hamming.cu", [
+        _H + "345", _H + "574", _H + "779", _H + "715", _H + "2007"]),
+    "consistency": ("libbicos_tpu_torch/csrc/consistency.cu", [
+        _H + "1413", _H + "1553", _H + "890", _H + "629", _H + "1305",
+        _H + "1037"]),
+    "agree": ("libbicos_tpu_torch/csrc/agree.cu", [
+        "libbicos_tpu/kernels/agree.py:483",
+        "libbicos_tpu/kernels/agree.py:826"]),
 }
+KERNELS = tuple(SOURCES)
 
 
 def fail(msg: str) -> None:
@@ -62,21 +82,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def plain_timed(torch, fn):
+    """One CUDA-event-timed run of ``fn()``: (result, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def time_ms(torch, fn, reps: int = REPS, warm: int = 1) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed
     runs, after ``warm`` untimed ones."""
     for _ in range(warm):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(plain_timed(torch, fn)[1] for _ in range(reps))
 
 
 def sweep_margins(torch, disp, s0, s1, step, minvar):
@@ -118,7 +140,7 @@ def sweep_margins(torch, disp, s0, s1, step, minvar):
 
 
 # Largest |kernel - plain| seen per kernel over every comparison of the run.
-ERRS = {"transform": 0.0, "hamming": 0.0, "agree": 0.0}
+ERRS = {k: 0.0 for k in KERNELS}
 
 
 def note_err(name, got, want) -> None:
@@ -140,18 +162,56 @@ def check_transform(torch, label, stacks, mode):
                  f"{int((got != want).sum())} words")
 
 
-def check_scan(torch, label, w0, w1):
+def check_scan(torch, label, w0, w1, drange=None):
+    """Scan kernel vs plain; returns (first, last) and the plain ms."""
     from libbicos_tpu_torch import search as ts
     from libbicos_tpu_torch.kernels.hamming import row_minima_words
 
-    fk, lk = row_minima_words(w0, w1, True)
-    _, fp, lp = ts.row_minima_torch_words(w0, w1, True)
+    fk, lk = row_minima_words(w0, w1, True, drange=drange)
+    (_, fp, lp), ms = plain_timed(
+        torch, lambda: ts.row_minima_torch_words(w0, w1, True,
+                                                 drange=drange))
     note_err("hamming", fk, fp)
     note_err("hamming", lk, lp)
     if not (torch.equal(fk, fp) and torch.equal(lk, lp)):
-        fail(f"{label}: scan first/last differ from plain in "
-             f"{int((fk != fp).sum() + (lk != lp).sum())} pixels")
-    return fp, lp
+        fail(f"{label}: scan first/last (range {drange}) differ from plain "
+             f"in {int((fk != fp).sum() + (lk != lp).sum())} pixels")
+    if drange is not None:
+        print(f"  {label} scan range {drange}: "
+              f"{int((fp < 0).sum())} pixels without a candidate",
+              flush=True)
+    return (fp, lp), ms
+
+
+def check_consistency(torch, label, w0, w1, no_dupes, drange=None):
+    """Consistency kernel vs plain, all four outputs (sentinels included);
+    returns the plain (first0, last0, rc0, rc0_last) and the plain ms."""
+    from libbicos_tpu_torch import search as ts
+    from libbicos_tpu_torch.kernels.consistency import (
+        row_minima_consistency_words,
+    )
+
+    (_, fk, lk), (_, rk, rlk) = row_minima_consistency_words(
+        w0, w1, no_dupes=no_dupes, drange=drange)
+    (fp, lp, rp, rlp), ms = plain_timed(
+        torch, lambda: ts.row_minima_consistency_torch_words(
+            w0, w1, no_dupes, drange))
+    pairs = [(fk, fp), (rk, rp)]
+    if no_dupes:
+        pairs += [(lk, lp), (rlk, rlp)]
+    elif lk is not None or rlk is not None:
+        fail(f"{label}: consistency without no_dupes returned last values")
+    bad = 0
+    for got, want in pairs:
+        note_err("consistency", got, want)
+        bad += int((got != want).sum())
+    if bad:
+        fail(f"{label}: consistency (no_dupes={no_dupes}, range {drange}) "
+             f"differs from plain in {bad} values")
+    print(f"  {label} consistency no_dupes={no_dupes} range {drange}: "
+          f"equal; {int((fp < 0).sum())} pixels without a forward "
+          f"candidate", flush=True)
+    return (fp, lp, rp, rlp), ms
 
 
 def check_agree(torch, label, disp, s0, s1, thr, step, minvar):
@@ -202,13 +262,63 @@ def compare_case(torch, label, s0, s1, mode, steps):
     from libbicos_tpu_torch import search as ts
 
     check_transform(torch, label, (s0, s1), mode)
-    first, last = check_scan(torch, label, td.descriptor_words(s0, mode),
-                             td.descriptor_words(s1, mode))
+    w0 = td.descriptor_words(s0, mode)
+    w1 = td.descriptor_words(s1, mode)
+    (first, last), _ = check_scan(torch, label, w0, w1)
     disp = ts._finish_nodupes(first, last, s0.shape[2])
     minvar = MIN_VARIANCE * s0.shape[0]
     for step in steps:
         for thr, mv in ((THRESHOLD, minvar), (-1.0, None)):
             check_agree(torch, label, disp, s0, s1, thr, step, mv)
+    width = s0.shape[2]
+    for drange in (DRANGE, (width + 100, width + 600)):  # the 2nd: none
+        check_scan(torch, label, w0, w1, drange)
+    for no_dupes in (True, False):
+        for drange in (None, DRANGE):
+            check_consistency(torch, label, w0, w1, no_dupes, drange)
+
+
+def call_case(torch, bicos, label, cfg, expect, s0, s1, truth):
+    """One full-size call through the kernels: launches (set to 0 just
+    before, read just after), two-run determinism, valid share, time."""
+    from libbicos_tpu_torch.kernels import _build
+
+    def call(backend="cuda"):
+        return bicos.match(s0, s1, cfg, corrmap=True, backend=backend)
+
+    _build.reset_launch_counts()
+    d1, c1 = call()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if launches != expect:
+        fail(f"call {label} launched {launches}, expected {expect}")
+    d2, c2 = call()
+    for a, b, what in ((d1, d2, "disparity"), (c1, c2, "corrmap")):
+        if not (torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))):
+            fail(f"two runs of call {label} gave different {what}")
+    h, w = s0.shape[1:]
+    if d1.shape != (h, w) or d1.dtype != torch.float32:
+        fail(f"call {label} disparity is {tuple(d1.shape)} {d1.dtype}")
+    valid = ~torch.isnan(d1)
+    if not bool(torch.isfinite(d1[valid]).all()):
+        fail(f"call {label}: valid disparities are not finite")
+    share = float(valid.float().mean())
+    if share <= 0:
+        fail(f"call {label}: no valid pixel")
+    near = float(((d1 - truth.float()).abs() <= 1.0)[valid].float().mean())
+    print(f"call {label}: valid share {share:.6f}, valid pixels within 1 px "
+          f"of the synthetic truth {near:.6f}, launches {launches}, two "
+          f"runs identical", flush=True)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, call)
+    peak = torch.cuda.max_memory_allocated()
+    plain_ms = time_ms(torch, lambda: call("torch"), reps=1, warm=0)
+    return {"launches": launches, "valid_share": share,
+            "within_1px_of_truth": near, "ms": ms, "plain_ms": plain_ms,
+            "stacks_per_s": 1000.0 / ms, "peak_bytes": peak,
+            "call_peak_bytes": peak - held}
 
 
 def main() -> None:
@@ -230,6 +340,9 @@ def main() -> None:
     from libbicos_tpu_torch.io import synthetic_stack_pair
     from libbicos_tpu_torch.kernels import _build
     from libbicos_tpu_torch.kernels.agree import agree_cuda
+    from libbicos_tpu_torch.kernels.consistency import (
+        row_minima_consistency_words,
+    )
     from libbicos_tpu_torch.kernels.hamming import row_minima_words
     from libbicos_tpu_torch.kernels.transform import descriptor_words_cuda
 
@@ -274,94 +387,101 @@ def main() -> None:
         torch, "ragged n=9 7x1001 u16 FULL", torch.from_numpy(r0).to(dev),
         torch.from_numpy(r1).to(dev), bicos.TransformMode.FULL,
         (STEP, 0.25, None))
+    u0, u1, _ = synthetic_stack_pair(9, 2, 40000, seed=5)
+    wu0 = td.descriptor_words(torch.from_numpy(u0).to(dev), mode)
+    wu1 = td.descriptor_words(torch.from_numpy(u1).to(dev), mode)
+    for no_dupes in (True, False):
+        check_consistency(torch, "wide n=9 2x40000 u8 LIMITED", wu0, wu1,
+                          no_dupes)
     torch.cuda.synchronize()
     print("phase 2: every kernel agrees with its plain version", flush=True)
 
-    # Phase 3: the headline call at full size.
-    cfg = bicos.Config(nxcorr_threshold=THRESHOLD, subpixel_step=STEP,
-                       min_variance=MIN_VARIANCE, mode=mode,
-                       variant=bicos.NoDuplicates())
-
-    def headline(backend="cuda"):
-        return bicos.match(s0, s1, cfg, corrmap=True, backend=backend)
-
-    _build.reset_launch_counts()
-    d1, c1 = headline()
-    torch.cuda.synchronize()
-    launches = _build.launch_counts()
-    for k, v in launches.items():
-        if v < 1:
-            fail(f"the headline call never launched the {k} kernel")
-    d2, c2 = headline()
-    for a, b, what in ((d1, d2, "disparity"), (c1, c2, "corrmap")):
-        if not (torch.equal(torch.isnan(a), torch.isnan(b))
-                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))):
-            fail(f"two headline runs gave different {what}")
-    if d1.shape != (h, w) or d1.dtype != torch.float32:
-        fail(f"headline disparity is {tuple(d1.shape)} {d1.dtype}")
-    valid = ~torch.isnan(d1)
-    if not bool(torch.isfinite(d1[valid]).all()):
-        fail("valid disparities are not finite")
-    share = float(valid.float().mean())
-    if share <= 0:
-        fail("no valid pixel in the headline output")
-    near = float(((d1 - truth.float()).abs() <= 1.0)[valid].float().mean())
-    print(f"headline: valid share {share:.6f}, valid pixels within 1 px of "
-          f"the synthetic truth {near:.6f}, launches {launches}", flush=True)
-
-    # Each kernel against its plain version at the shapes the call gives it.
+    # Phase 3: four calls at full size, each with the kernels of its path.
     check_transform(torch, "headline", (s0, s1), mode)
     w0 = descriptor_words_cuda(s0, mode)
     w1 = descriptor_words_cuda(s1, mode)
-    disp = ts._finish_nodupes(*check_scan(torch, "headline", w0, w1), w)
     mv = MIN_VARIANCE * n
-    check_agree(torch, "headline", disp, s0, s1, THRESHOLD, STEP, mv)
-    print("phase 3: at the headline shapes every kernel agrees with its "
-          "plain version", flush=True)
+    path = {k: 0 for k in KERNELS}
+    nodup_path = {**path, "transform": 2, "hamming": 1, "agree": 1}
+    cons_path = {**path, "transform": 2, "consistency": 1, "agree": 1}
+    calls = {
+        "A": (bicos.NoDuplicates(), None, nodup_path),
+        "B": (bicos.Consistency(1, True), None, cons_path),
+        "C": (bicos.NoDuplicates(), DRANGE, nodup_path),
+        "D": (bicos.Consistency(1, True), DRANGE, cons_path),
+    }
+    results, scans, disp_a = {}, {}, None
+    for label, (variant, drange, expect) in calls.items():
+        cfg = bicos.Config(nxcorr_threshold=THRESHOLD, subpixel_step=STEP,
+                           min_variance=MIN_VARIANCE, mode=mode,
+                           variant=variant, disparity_range=drange)
+        res = call_case(torch, bicos, label, cfg, expect, s0, s1, truth)
+        # The call's scan kernel against its plain version at its shapes.
+        if isinstance(variant, bicos.NoDuplicates):
+            kname = "hamming"
+            (first, last), plain_ms = check_scan(torch, f"call {label}", w0,
+                                                 w1, drange)
+            disp = ts._finish_nodupes(first, last, w)
+            kms = time_ms(torch, lambda: row_minima_words(
+                w0, w1, True, drange=drange))
+        else:
+            kname = "consistency"
+            out, plain_ms = check_consistency(torch, f"call {label}", w0, w1,
+                                              True, drange)
+            disp = ts._finish_gathered(variant, *out)
+            kms = time_ms(torch, lambda: row_minima_consistency_words(
+                w0, w1, no_dupes=True, drange=drange))
+        if not torch.equal(ts.search_stack(s0, s1, mode, variant, "cuda",
+                                           drange=drange), disp):
+            fail(f"call {label}: the kernels' search disparity differs "
+                 "from the plain scan's")
+        check_agree(torch, f"call {label}", disp, s0, s1, THRESHOLD, STEP,
+                    mv)
+        ams = time_ms(torch, lambda: agree_cuda(disp, s0, s1, THRESHOLD,
+                                                STEP, mv))
+        scans[label] = (kname, kms, plain_ms)
+        res.update(variant=repr(variant), drange=drange, scan=kname,
+                   scan_ms=kms, scan_plain_ms=plain_ms, agree_ms=ams)
+        results[label] = res
+        if label == "A":
+            disp_a = disp
+        print(f"call {label} ({variant!r}, range {drange}): "
+              f"{res['ms']:.3f} ms with the kernels, {res['plain_ms']:.1f} "
+              f"ms plain; {kname} kernel {kms:.3f} ms, plain "
+              f"{plain_ms:.1f} ms; agree kernel {ams:.3f} ms; peak device "
+              f"memory {res['peak_bytes']} bytes, "
+              f"{res['call_peak_bytes']} above what was held before the "
+              f"call ({card})", flush=True)
+    print("phase 3: every call launched its path's kernels, ran "
+          "deterministically, and each kernel agrees with its plain "
+          "version at the call's shapes", flush=True)
 
-    # The call's own working set: its peak over what was held before it
-    # (the inputs, and the maps and words kept for the checks above).
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    call_ms = time_ms(torch, headline)
-    peak = torch.cuda.max_memory_allocated()
-    plain_call_ms = time_ms(torch, lambda: headline("torch"), reps=1,
-                            warm=0)
     timings = {
         "transform": (
             time_ms(torch, lambda: descriptor_words_cuda(s0, mode)),
             time_ms(torch, lambda: td.descriptor_words(s0, mode), reps=3)),
-        "hamming": (
-            time_ms(torch, lambda: row_minima_words(w0, w1, True)),
-            time_ms(torch, lambda: ts.row_minima_torch_words(w0, w1, True),
-                    reps=1, warm=0)),
+        "hamming": scans["A"][1:],
+        "consistency": scans["B"][1:],
         "agree": (
-            time_ms(torch, lambda: agree_cuda(disp, s0, s1, THRESHOLD, STEP,
-                                              mv)),
-            time_ms(torch, lambda: ta.agree_subpixel(disp, s0, s1, THRESHOLD,
-                                                     STEP, mv), reps=3)),
+            time_ms(torch, lambda: agree_cuda(disp_a, s0, s1, THRESHOLD,
+                                              STEP, mv)),
+            time_ms(torch, lambda: ta.agree_subpixel(
+                disp_a, s0, s1, THRESHOLD, STEP, mv), reps=3)),
     }
-    print(f"headline call: {call_ms:.3f} ms with the kernels, "
-          f"{plain_call_ms:.1f} ms plain; peak device memory {peak} bytes, "
-          f"of which {peak - held} above what was held before the call "
-          f"({card})", flush=True)
     for k, (kms, pms) in timings.items():
         print(f"  {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms ({card})",
               flush=True)
-    print(json.dumps({"headline": {
-        "shape": list(HEADLINE), "dtype": "uint8", "mode": "LIMITED",
-        "threshold": THRESHOLD, "min_variance": MIN_VARIANCE, "step": STEP,
-        "ms": call_ms, "plain_ms": plain_call_ms,
-        "stacks_per_s": 1000.0 / call_ms, "peak_bytes": peak,
-        "call_peak_bytes": peak - held,
-        "valid_share": share, "within_1px_of_truth": near,
-        "card": card}}), flush=True)
+    print(json.dumps({"calls": results, "shape": list(HEADLINE),
+                      "dtype": "uint8", "mode": "LIMITED",
+                      "threshold": THRESHOLD, "min_variance": MIN_VARIANCE,
+                      "step": STEP, "card": card}), flush=True)
     kernels = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
-         "replaces": SOURCES[k][1], "launches": launches[k],
+         "replaces": SOURCES[k][1],
+         "launches": sum(r["launches"][k] for r in results.values()),
          "max_abs_err": ERRS[k], "ms": timings[k][0],
          "plain_ms": timings[k][1]}
-        for k in ("transform", "hamming", "agree")
+        for k in KERNELS
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernel library, and count kernel launches.
 
-The sources in ``csrc/*.cu`` are compiled with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use into ``libbicos_tpu_torch/_build/`` and is redone whenever the
-hash of the sources and flags changes; ``nvcc``'s output (``-Xptxas -v``:
-registers, shared memory, spills) is kept beside the library as a ``.log``.
+The sources in ``csrc/*.cu`` are compiled with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at first use into
+``libbicos_tpu_torch/_build/`` and is redone whenever the hash of the
+sources and flags changes; ``nvcc``'s output (``-Xptxas -v``: registers,
+shared memory, spills) is kept beside the library as a ``.log``.
 
 Every wrapper adds one to its kernel's count in :data:`LAUNCHES` where it
 launches the kernel, and nowhere else, so a run can show that its main
@@ -31,10 +32,10 @@ BUILD_DIR = PACKAGE / "_build"
 # intended fmas as __fmaf_rn). Never --use_fast_math.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"transform": 0, "hamming": 0, "agree": 0}
+LAUNCHES = {"transform": 0, "hamming": 0, "consistency": 0, "agree": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,8 +44,16 @@ _SIGNATURES = {
     # every entry point takes the device index first, then:
     # stack, words, n, h, w, u16, full, nw, stream
     "bicos_transform": (_I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # words0, words1, first, last, h, wid0, wid1, nw, need_last, stream
-    "bicos_row_minima": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # words0, words1, first, last, h, wid0, wid1, nw, need_last, has_range,
+    # dmin, dmax, stream
+    "bicos_row_minima": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
+    # wid1, nw, no_dupes
+    "bicos_consistency_needs_scratch": (_I, _I, _I, _I),
+    # words0, words1, first, last, rc0, rc0_last, scratch, h, wid0, wid1,
+    # nw, no_dupes, has_range, dmin, dmax, stream
+    "bicos_consistency": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P),
     # disp, s0, s1, xs, nx, out, corr, n, h, w, u16, threshold, minvar,
     # has_minvar, stream
     "bicos_agree": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _F,
@@ -92,20 +101,41 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source in parallel, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        log.append(f"== {src.name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode})")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    so.with_suffix(".log").write_text(text)
+    if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            f"nvcc failed: {', '.join(failed)}:\n{text[-4000:]}")
     os.replace(tmp, so)
     return so
 

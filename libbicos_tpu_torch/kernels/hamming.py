@@ -1,12 +1,16 @@
-"""Hamming row-scan kernel (``csrc/hamming.cu``) and the stack search.
+"""Hamming row-scan kernel (``csrc/hamming.cu``) and the stack searches.
 
 * :func:`row_minima_words` is the Hopper counterpart of the Pallas
-  ``libbicos_tpu/kernels/hamming.py::_minima_kernel`` (via
-  ``row_minima_pallas_words``); its plain version is
-  :func:`libbicos_tpu_torch.search.row_minima_torch_words`.
+  ``libbicos_tpu/kernels/hamming.py::_minima_kernel`` and its int8 twin
+  ``_minima_kernel_i8`` (via ``row_minima_pallas_words``); its plain version
+  is :func:`libbicos_tpu_torch.search.row_minima_torch_words`.
 * :func:`row_minima_stack` is the counterpart of the fused Pallas
-  ``_minima_kernel_bf16_stack`` (via ``row_minima_stack``): the transform
-  kernel on both stacks, then the scan.
+  ``_minima_kernel_bf16_stack`` and its twin ``_minima_kernel_i8_stack``
+  (via ``row_minima_stack``): the transform kernel on both stacks, then the
+  scan.
+* :func:`row_minima_stack_range` is the counterpart of
+  ``_minima_kernel_bf16_stack_range`` (via ``row_minima_stack_range``): the
+  same, restricted to a disparity range, visiting O(W * range) pairs.
 """
 
 from __future__ import annotations
@@ -21,20 +25,10 @@ from . import _build
 from .transform import descriptor_words_cuda
 
 
-def row_minima_words(
-    words0: torch.Tensor, words1: torch.Tensor, need_last: bool
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """First (and, with ``need_last``, last) right column of least Hamming
-    distance for every left pixel: ``(H, W0)`` int32 each; ``last`` is None
-    without ``need_last``.
-
-    ``words0``: ``(H, W0, nw)`` int32, ``words1``: ``(H, W1, nw)`` int32.
-    A CPU tensor goes through the plain scan; CUDA tensors launch the
-    kernel."""
-    if words0.device.type == "cpu" and words1.device.type == "cpu":
-        _, first, last = row_minima_torch_words(words0, words1, need_last)
-        return first, last
-    _build.require_cuda("row_minima_words", words0, words1)
+def check_words(name: str, words0: torch.Tensor, words1: torch.Tensor):
+    """Check two CUDA word tensors for the scan kernels; returns
+    ``(h, w0, w1, nw)``."""
+    _build.require_cuda(name, words0, words1)
     if (words0.dim() != 3 or words1.dim() != 3
             or words0.dtype != torch.int32 or words1.dtype != torch.int32):
         raise ValueError("words must be (H, W, nw) int32 tensors")
@@ -47,13 +41,51 @@ def row_minima_words(
     if not 1 <= nw <= 8:
         raise ValueError(f"{nw} descriptor words: the kernel takes 1 to 8")
     if h * w0 * w1 == 0:
-        raise ValueError("row_minima_words needs non-empty rows")
+        raise ValueError(f"{name} needs non-empty rows")
+    if max(w0, w1) > 1 << 22:
+        raise ValueError(f"image width {max(w0, w1)} > {1 << 22}")
+    return h, w0, w1, nw
+
+
+def range_args(drange, w0: int, w1: int) -> Tuple[int, int, int]:
+    """``(has_range, dmin, dmax)`` for a kernel, with the bounds clamped
+    into ``[-w1, w0]``: every pair has ``-w1 < col0 - col1 < w0``, so the
+    clamp keeps the set of in-range pairs (empty ones stay empty) and keeps
+    the kernels' window arithmetic inside int32."""
+    if drange is None:
+        return 0, 0, 0
+    dmin, dmax = (int(v) for v in drange)
+    if dmin > dmax:
+        raise ValueError(f"drange needs dmin <= dmax, got {drange!r}")
+    return 1, min(max(dmin, -w1), w0), min(max(dmax, -w1), w0)
+
+
+def row_minima_words(
+    words0: torch.Tensor, words1: torch.Tensor, need_last: bool,
+    drange=None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """First (and, with ``need_last``, last) right column of least Hamming
+    distance for every left pixel: ``(H, W0)`` int32 each; ``last`` is None
+    without ``need_last``. ``drange = (dmin, dmax)`` restricts the search to
+    ``dmin <= col0 - col1 <= dmax``; a pixel with no candidate gets
+    ``first = -1, last = -2``.
+
+    ``words0``: ``(H, W0, nw)`` int32, ``words1``: ``(H, W1, nw)`` int32.
+    CPU tensors go through the plain scan; CUDA tensors launch the
+    kernel."""
+    if words0.device.type == "cpu" and words1.device.type == "cpu":
+        _, first, last = row_minima_torch_words(words0, words1, need_last,
+                                                drange=drange)
+        return first, last
+    h, w0, w1, nw = check_words("row_minima_words", words0, words1)
+    has_range, dmin, dmax = range_args(drange, w0, w1)
     first = torch.empty((h, w0), dtype=torch.int32, device=words0.device)
     last = torch.empty_like(first) if need_last else None
     rc = _build.library().bicos_row_minima(
         words0.device.index, words0.data_ptr(), words1.data_ptr(),
         first.data_ptr(), last.data_ptr() if need_last else None,
-        h, w0, w1, nw, int(need_last), _build.stream_of(words0))
+        h, w0, w1, nw, int(need_last), has_range, dmin, dmax,
+        _build.stream_of(words0))
     _build.check(rc, "hamming")
     _build.count_launch("hamming")
     return first, last
@@ -66,4 +98,15 @@ def row_minima_stack(stack0: torch.Tensor, stack1: torch.Tensor, *,
     first, last = row_minima_words(
         descriptor_words_cuda(stack0, mode),
         descriptor_words_cuda(stack1, mode), need_last)
+    return None, first, last
+
+
+def row_minima_stack_range(stack0: torch.Tensor, stack1: torch.Tensor, *,
+                           mode: TransformMode, drange):
+    """Transform + ranged scan from ``(n, H, W)`` stacks; returns ``(None,
+    first, last)`` with the no-candidate sentinels ``-1 / -2``, like the
+    JAX ``row_minima_stack_range``."""
+    first, last = row_minima_words(
+        descriptor_words_cuda(stack0, mode),
+        descriptor_words_cuda(stack1, mode), True, drange=drange)
     return None, first, last

@@ -14,8 +14,9 @@ The counterpart of ``libbicos_tpu.pipeline``, eager PyTorch:
 inputs there first; ``"cuda"`` with CPU inputs and no ``device`` moves them
 to the current CUDA device, and raises where there is none.
 
-Not ported yet, and refused with ``NotImplementedError`` by both backends:
-the Consistency variant, ``disparity_range`` and DOUBLE precision.
+Both search variants (NoDuplicates, Consistency) and
+``cfg.disparity_range`` run on both backends. Not ported yet, and refused
+with ``NotImplementedError`` by both backends: DOUBLE precision.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from . import agree as _agree
 from . import search as _search
-from .config import Config, NoDuplicates, Precision, validate_stack
+from .config import Config, Precision, validate_stack
 
 
 def _as_tensor(x, backend: str, device) -> torch.Tensor:
@@ -61,10 +62,6 @@ def _validate_inputs(stack0: torch.Tensor, stack1: torch.Tensor) -> None:
 
 
 def _check_ported(cfg: Config) -> None:
-    if not isinstance(cfg.variant, NoDuplicates):
-        raise NotImplementedError("the Consistency variant is not ported yet")
-    if cfg.disparity_range is not None:
-        raise NotImplementedError("disparity_range is not ported yet")
     if cfg.precision != Precision.SINGLE:
         raise NotImplementedError("DOUBLE precision is not ported yet")
 
@@ -99,7 +96,13 @@ def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
     backend = _search.resolve_backend(backend, stack0, stack1)
 
     disp = _search.search_stack(stack0, stack1, cfg.mode, cfg.variant,
-                                backend=backend)
+                                backend=backend, drange=cfg.disparity_range)
+    # The agree stage takes no range. The JAX package widens its agree
+    # windows by ceil(max_lr_diff / 2) for a ranged Consistency search
+    # (whose matched column can sit that far outside the range), but those
+    # windows exist only for the TPU's static gathers: both agree versions
+    # here read any column, and invalidate a matched column outside the row
+    # as the JAX XLA agree does.
     corr = None
     if cfg.nxcorr_threshold is not None:
         minvar = None if cfg.min_variance is None else cfg.min_variance * n

@@ -3,7 +3,11 @@
 For every left pixel, scan the whole right epipolar row and take the
 column of least Hamming distance between packed descriptors; NoDuplicates
 invalidates a pixel whose minimum is not unique, i.e. whose first and last
-argmin differ. Same semantics as ``libbicos_tpu.search``.
+argmin differ. Consistency searches back from the best right column into
+the left row and keeps the pixel iff the reverse argmin lands within
+``max_lr_diff`` of it. ``drange = (dmin, dmax)`` (``Config.disparity_range``)
+restricts both searches to the pairs with ``dmin <= col0 - col1 <= dmax``.
+Same semantics as ``libbicos_tpu.search``.
 
 :func:`row_minima_torch_words` is the plain scan, the version beside the
 kernel in ``kernels/hamming.py``. Torch has no popcount op: the XOR-ed
@@ -12,7 +16,14 @@ argmin packs ``cost * K + col`` (first) and ``cost * K + (W1-1-col)``
 (last) into int32 and takes plain minima; ``K = 32768``, widened to the
 next power of two for wider rows, is exact in int32 up to a width of 2^22
 (cost <= 256). Rows and, for very wide rows, columns are chunked so that
-one ``(R, W0, C)`` int32 cost slab stays near 256 MiB.
+one ``(R, W0, C)`` int32 cost slab stays near 256 MiB. Out-of-range pairs
+are replaced by ``BIG`` (decoded cost > 256), so a pixel with no candidate
+decodes to the sentinels ``first = -1, last = -2``.
+
+:func:`row_minima_consistency_torch_words` is the plain version beside the
+fused forward + reverse kernel in ``kernels/consistency.py``: two plain
+passes, the reverse one with the range reflected, then a gather at the
+forward argmin.
 
 Backends: ``"torch"`` is the plain version (CPU or GPU), ``"cuda"`` the
 hand-written kernels, and ``"auto"`` picks ``"cuda"`` for CUDA tensors and
@@ -26,7 +37,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from .config import NoDuplicates, SearchVariant, TransformMode
+from .config import (
+    Consistency,
+    NoDuplicates,
+    SearchVariant,
+    TransformMode,
+    validate_stack,
+)
 from .descriptor import descriptor_words
 
 INVALID_I16 = -32768
@@ -34,6 +51,9 @@ PACK_K = 32768
 BACKENDS = ("auto", "torch", "cuda")
 # Left-right pairs per chunk of the plain scan: a 256 MiB int32 cost slab.
 PAIR_BUDGET = 1 << 26
+# Stands in for an out-of-range pair: above every real packing at every pack
+# width up to 2^22 (decoded cost > 256), as in the JAX scan.
+BIG = 0x7F000000
 
 
 def resolve_backend(backend: str, *tensors: torch.Tensor) -> str:
@@ -83,33 +103,93 @@ def decode_packed_minima(mf, ml, w1: int, need_last: bool,
 
 def row_minima_torch_words(
     words0: torch.Tensor, words1: torch.Tensor, need_last: bool,
-    pair_budget: int = PAIR_BUDGET,
+    pair_budget: int = PAIR_BUDGET, drange=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain scan: ``(cost, first, last-or-None)``, each ``(H, W0)`` int32,
-    for ``(H, W0, nw)`` and ``(H, W1, nw)`` int32 words."""
+    for ``(H, W0, nw)`` and ``(H, W1, nw)`` int32 words. ``drange``:
+    optional inclusive ``(dmin, dmax)`` on ``col0 - col1``; a pixel with no
+    candidate in range gets ``first = -1, last = -2``."""
     h, w0, _ = words0.shape
     w1 = words1.shape[1]
+    dev = words0.device
     pack_k = PACK_K if w1 <= PACK_K else 1 << (w1 - 1).bit_length()
     if pack_k > 1 << 22:
         raise ValueError(
             f"image width {w1} > {1 << 22} overflows the int32 cost packing")
     cols = w1 if w0 * w1 <= pair_budget else max(1, pair_budget // w0)
     rows = max(1, pair_budget // (w0 * cols))
-    big = torch.iinfo(torch.int32).max
-    mf = torch.full((h, w0), big, dtype=torch.int32, device=words0.device)
-    ml = torch.full_like(mf, big)
-    for r0 in range(0, h, rows):
-        rs = slice(r0, min(h, r0 + rows))
-        for c0 in range(0, w1, cols):
-            cs = slice(c0, min(w1, c0 + cols))
-            cost = _hamming(words0[rs], words1[rs, cs]) * pack_k
-            col = torch.arange(cs.start, cs.stop, dtype=torch.int32,
-                               device=words0.device)
-            mf[rs] = torch.minimum(mf[rs], (cost + col).amin(dim=-1))
+    col0 = torch.arange(w0, dtype=torch.int32, device=dev)[:, None]
+    mf = torch.full((h, w0), BIG, dtype=torch.int32, device=dev)
+    ml = torch.full_like(mf, BIG)
+    for c0 in range(0, w1, cols):
+        col = torch.arange(c0, min(w1, c0 + cols), dtype=torch.int32,
+                           device=dev)
+        bad = None
+        if drange is not None:
+            d = col0 - col  # (W0, C) candidate disparity
+            bad = (d < drange[0]) | (d > drange[1])
+        for r0 in range(0, h, rows):
+            rs = slice(r0, min(h, r0 + rows))
+            cost = _hamming(words0[rs], words1[rs, c0:c0 + col.numel()])
+            cost *= pack_k
+            pf = cost + col
+            if bad is not None:
+                pf = torch.where(bad, BIG, pf)
+            mf[rs] = torch.minimum(mf[rs], pf.amin(dim=-1))
             if need_last:
-                ml[rs] = torch.minimum(
-                    ml[rs], (cost + (w1 - 1 - col)).amin(dim=-1))
-    return decode_packed_minima(mf, ml, w1, need_last, pack_k)
+                pl = cost + (w1 - 1 - col)
+                if bad is not None:
+                    pl = torch.where(bad, BIG, pl)
+                ml[rs] = torch.minimum(ml[rs], pl.amin(dim=-1))
+    cost, first, last = decode_packed_minima(mf, ml, w1, need_last, pack_k)
+    if drange is not None:
+        none = cost > 256
+        first = torch.where(none, -1, first)
+        if need_last:
+            last = torch.where(none, -2, last)
+    return cost, first, last
+
+
+def _lookup_reverse(first1, last1, first0):
+    """Reverse minima read at each left pixel's forward argmin: ``(rc0,
+    rc0_last-or-None)``; ``-1 / -2`` where the forward side found no
+    candidate (``first0 < 0``)."""
+    idx = first0.clamp(min=0).to(torch.int64)
+    none = first0 < 0
+    rc0 = torch.where(none, -1, first1.gather(1, idx))
+    rc0_last = (None if last1 is None
+                else torch.where(none, -2, last1.gather(1, idx)))
+    return rc0, rc0_last
+
+
+def reflect_range(drange):
+    """The reverse search swaps query and candidate, so ``(dmin, dmax)``
+    becomes ``(-dmax, -dmin)``."""
+    return None if drange is None else (-drange[1], -drange[0])
+
+
+def _two_pass(words0, words1, no_dupes: bool, drange):
+    """Forward ``(first0, last0)`` over right columns and reverse
+    ``(first1, last1)`` over left columns, last ones None without
+    ``no_dupes``."""
+    _, first0, last0 = row_minima_torch_words(words0, words1, no_dupes,
+                                              drange=drange)
+    _, first1, last1 = row_minima_torch_words(words1, words0, no_dupes,
+                                              drange=reflect_range(drange))
+    return first0, last0, first1, last1
+
+
+def row_minima_consistency_torch_words(words0: torch.Tensor,
+                                       words1: torch.Tensor, no_dupes: bool,
+                                       drange=None):
+    """Plain Consistency scan: ``(first0, last0, rc0, rc0_last)``, each
+    ``(H, W0)`` int32 (``last0``/``rc0_last`` None without ``no_dupes``).
+    ``rc0[h, c0]`` is the reverse first argmin (the least left column of
+    least cost) of right column ``first0[h, c0]``, ``rc0_last`` the reverse
+    last argmin."""
+    first0, last0, first1, last1 = _two_pass(words0, words1, no_dupes,
+                                             drange)
+    return (first0, last0) + _lookup_reverse(first1, last1, first0)
 
 
 def _finish_nodupes(first: torch.Tensor, last: torch.Tensor,
@@ -120,45 +200,101 @@ def _finish_nodupes(first: torch.Tensor, last: torch.Tensor,
     return disp.to(torch.int16)
 
 
-def _check_variant(variant: SearchVariant) -> None:
-    if not isinstance(variant, NoDuplicates):
-        raise NotImplementedError(
-            f"{type(variant).__name__} search is not ported yet; "
-            "only NoDuplicates is")
+def _finish_consistency(first0, last0, first1, last1,
+                        variant: Consistency) -> torch.Tensor:
+    """Decode from per-right-column reverse minima ``(H, W1)``."""
+    return _finish_gathered(variant, first0, last0,
+                            *_lookup_reverse(first1, last1, first0))
+
+
+def _finish_consistency_gathered(first0, last0, rc0, rok, h: int, w0: int,
+                                 variant: Consistency) -> torch.Tensor:
+    """Decode from reverse minima already read at the forward argmin."""
+    col0 = torch.arange(w0, dtype=torch.int32, device=first0.device)[None, :]
+    valid = torch.ones((h, w0), dtype=torch.bool, device=first0.device)
+    if variant.no_dupes:
+        valid = first0 == last0
+    # >= 0 guards the range sentinels (forward and reverse); both operands
+    # of the floor division are >= 0 wherever the result is kept.
+    valid = (valid & rok & (first0 >= 0) & (rc0 >= 0)
+             & ((col0 - rc0).abs() <= variant.max_lr_diff))
+    disp = torch.div(col0 + rc0, 2, rounding_mode="floor") - first0
+    return torch.where(valid, disp, INVALID_I16).to(torch.int16)
+
+
+def _finish_gathered(variant: Consistency, first0, last0, rc0, rc0_last):
+    """The reverse no_dupes check (``rc0 == rc0_last``), then the decode."""
+    h, w0 = first0.shape
+    rok = (rc0 == rc0_last if variant.no_dupes
+           else torch.ones((h, w0), dtype=torch.bool, device=first0.device))
+    return _finish_consistency_gathered(first0, last0, rc0, rok, h, w0,
+                                        variant)
 
 
 def search_words(words0: torch.Tensor, words1: torch.Tensor, nbits: int,
-                 variant: SearchVariant,
-                 backend: str = "auto") -> torch.Tensor:
+                 variant: SearchVariant, backend: str = "auto",
+                 drange=None) -> torch.Tensor:
     """Correspondence search on packed int32 words -> ``(H, W0)`` int16
     disparity (-32768 invalid). ``nbits`` is kept for parity with the JAX
-    surface; the words carry their bits."""
-    _check_variant(variant)
+    surface; the words carry their bits. ``drange``: optional inclusive
+    ``(dmin, dmax)`` disparity range."""
     backend = resolve_backend(backend, words0, words1)
-    if backend == "cuda":
-        from .kernels.hamming import row_minima_words
+    w0 = words0.shape[1]
+    if isinstance(variant, NoDuplicates):
+        if backend == "cuda":
+            from .kernels.hamming import row_minima_words
 
-        first, last = row_minima_words(words0, words1, True)
-    else:
-        _, first, last = row_minima_torch_words(words0, words1, True)
-    return _finish_nodupes(first, last, words0.shape[1])
+            first, last = row_minima_words(words0, words1, True,
+                                           drange=drange)
+        else:
+            _, first, last = row_minima_torch_words(words0, words1, True,
+                                                    drange=drange)
+        return _finish_nodupes(first, last, w0)
+    if backend == "cuda":
+        from .kernels.consistency import row_minima_consistency_words
+
+        (_, first0, last0), (_, rc0, rc0_last) = (
+            row_minima_consistency_words(words0, words1,
+                                         no_dupes=variant.no_dupes,
+                                         drange=drange))
+        return _finish_gathered(variant, first0, last0, rc0, rc0_last)
+    return _finish_consistency(
+        *_two_pass(words0, words1, variant.no_dupes, drange), variant)
 
 
 def search_stack(stack0: torch.Tensor, stack1: torch.Tensor,
                  mode: TransformMode, variant: SearchVariant,
-                 backend: str = "auto") -> torch.Tensor:
+                 backend: str = "auto", drange=None) -> torch.Tensor:
     """Correspondence search straight from ``(n, H, W)`` stacks -> int16
-    disparity: transform kernel + scan kernel on ``"cuda"``, the plain
-    transform and scan on ``"torch"``."""
-    _check_variant(variant)
+    disparity: the transform kernel and a scan kernel on ``"cuda"`` (the
+    NoDuplicates scan, ranged or not, or the fused Consistency scan), the
+    plain transform and scan on ``"torch"``."""
     backend = resolve_backend(backend, stack0, stack1)
-    if backend == "cuda":
-        from .kernels.hamming import row_minima_stack
-
-        _, first, last = row_minima_stack(stack0, stack1, mode=mode,
-                                          need_last=True)
-    else:
-        _, first, last = row_minima_torch_words(
+    w0 = stack0.shape[2]
+    if backend != "cuda":
+        return search_words(
             descriptor_words(stack0, mode), descriptor_words(stack1, mode),
-            True)
-    return _finish_nodupes(first, last, stack0.shape[2])
+            validate_stack(stack0.shape[0], mode), variant, backend,
+            drange=drange)
+    if isinstance(variant, NoDuplicates):
+        from .kernels import hamming as kh
+
+        if drange is None:
+            _, first, last = kh.row_minima_stack(stack0, stack1, mode=mode,
+                                                 need_last=True)
+        else:
+            _, first, last = kh.row_minima_stack_range(
+                stack0, stack1, mode=mode, drange=drange)
+        return _finish_nodupes(first, last, w0)
+    from .kernels import consistency as kc
+
+    if drange is None:
+        (_, first0, last0), (_, rc0, rc0_last) = (
+            kc.row_minima_consistency_stack(stack0, stack1, mode=mode,
+                                            no_dupes=variant.no_dupes))
+    else:
+        (_, first0, last0), (_, rc0, rc0_last) = (
+            kc.row_minima_consistency_stack_range(
+                stack0, stack1, mode=mode, no_dupes=variant.no_dupes,
+                drange=drange))
+    return _finish_gathered(variant, first0, last0, rc0, rc0_last)

@@ -14,6 +14,9 @@ from libbicos_tpu_torch import search as ts
 from libbicos_tpu_torch.io import synthetic_stack_pair
 from libbicos_tpu_torch.kernels import _build
 from libbicos_tpu_torch.kernels.agree import agree_cuda
+from libbicos_tpu_torch.kernels.consistency import (
+    row_minima_consistency_words,
+)
 from libbicos_tpu_torch.kernels.hamming import row_minima_words
 from libbicos_tpu_torch.kernels.transform import descriptor_words_cuda
 
@@ -89,7 +92,8 @@ def test_match_cuda_launches_every_kernel_and_matches_plain(dev):
     _build.reset_launch_counts()
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
     counts = _build.launch_counts()
-    assert counts == {"transform": 2, "hamming": 1, "agree": 1}
+    assert counts == {"transform": 2, "hamming": 1, "consistency": 0,
+                      "agree": 1}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
     v = ~torch.isnan(want_d)
@@ -103,3 +107,126 @@ def test_wrappers_reject_cpu_mixed_devices(dev):
     words = descriptor_words_cuda(s0, tb.TransformMode.LIMITED)
     with pytest.raises(ValueError, match="one CUDA device"):
         row_minima_words(words, words.cpu(), True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        row_minima_words(words.cpu(), words, True, drange=(0, 4))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        row_minima_consistency_words(words, words.cpu(), no_dupes=True)
+
+
+def _words_pair(dev, n, mode, h, w0, w1=None, seed=11):
+    s0, s1 = _pair(dev, n, h, max(w0, w1 or w0), seed=seed)
+    m = tb.TransformMode[mode]
+    a = td.descriptor_words(s0, m)[:, :w0].contiguous()
+    b = td.descriptor_words(s1, m)[:, :(w1 or w0)].contiguous()
+    return a, b
+
+
+def _random_words(dev, h, w, nw, seed):
+    g = np.random.default_rng(seed)
+    x = g.integers(-2**31, 2**31, size=(h, w, nw), dtype=np.int64)
+    return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+
+RANGES = [(0, 511), (-5, 20), (100, 140), (5000, 6000), (-300, -200)]
+
+
+@pytest.mark.parametrize("drange", RANGES)
+@pytest.mark.parametrize("n, mode, w0, w1", [
+    (33, "LIMITED", 1100, 1100), (16, "FULL", 513, 700),
+    (65, "LIMITED", 300, 129), (2, "LIMITED", 70, 70),
+])
+def test_ranged_scan_kernel_equal(dev, n, mode, w0, w1, drange):
+    """The ranged scan against its plain version, sentinels included
+    ((5000, 6000) leaves every pixel without a candidate)."""
+    a, b = _words_pair(dev, n, mode, 5, w0, w1)
+    first, last = row_minima_words(a, b, True, drange=drange)
+    _, pf, pl = ts.row_minima_torch_words(a, b, True, drange=drange)
+    assert torch.equal(first, pf) and torch.equal(last, pl)
+    f2, none = row_minima_words(a, b, False, drange=drange)
+    assert none is None and torch.equal(f2, pf)
+    if drange == (5000, 6000):
+        assert bool((first == -1).all()) and bool((last == -2).all())
+
+
+def _assert_cons_equal(out, plain, no_dupes):
+    (none0, f, l), (none1, rc, rcl) = out
+    pf, pl, prc, prcl = plain
+    assert none0 is None and none1 is None
+    assert torch.equal(f, pf) and torch.equal(rc, prc)
+    if no_dupes:
+        assert torch.equal(l, pl) and torch.equal(rcl, prcl)
+    else:
+        assert l is None and rcl is None
+
+
+@pytest.mark.parametrize("no_dupes", [True, False])
+@pytest.mark.parametrize("drange", [None] + RANGES)
+@pytest.mark.parametrize("n, mode, w0, w1", [
+    (33, "LIMITED", 1100, 1100), (16, "FULL", 513, 700),
+    (65, "LIMITED", 300, 129), (2, "LIMITED", 70, 70),
+])
+def test_consistency_kernel_equal(dev, n, mode, w0, w1, drange, no_dupes):
+    a, b = _words_pair(dev, n, mode, 5, w0, w1)
+    out = row_minima_consistency_words(a, b, no_dupes=no_dupes,
+                                       drange=drange)
+    _assert_cons_equal(
+        out, ts.row_minima_consistency_torch_words(a, b, no_dupes, drange),
+        no_dupes)
+
+
+@pytest.mark.parametrize("no_dupes", [True, False])
+def test_consistency_kernel_ties(dev, no_dupes):
+    """Duplicate columns on both sides: reverse first/last tie order."""
+    a = _random_words(dev, 3, 600, 2, 1)
+    b = _random_words(dev, 3, 600, 2, 2)
+    b[:, 500:520] = b[:, 10:30]
+    a[:, 400:420] = a[:, 20:40]
+    a[:, 40:60] = b[:, 10:30]
+    a[:, 300:320] = b[:, 10:30]
+    out = row_minima_consistency_words(a, b, no_dupes=no_dupes)
+    _assert_cons_equal(
+        out, ts.row_minima_consistency_torch_words(a, b, no_dupes), no_dupes)
+
+
+@pytest.mark.parametrize("drange", [None, (0, 511), (-40000, 40000),
+                                    (50000, 60000)])
+def test_consistency_kernel_ultrawide(dev, drange):
+    """2 rows x 40000 columns: the reverse minima live in the global
+    scratch (320 KB a row with no_dupes, over the shared-memory limit)."""
+    b = _random_words(dev, 2, 40000, 1, 3)
+    a = torch.roll(b, 7, dims=1).contiguous()
+    a[:, 30000:30010] = a[:, 100:110]
+    for no_dupes in (True, False):
+        out = row_minima_consistency_words(a, b, no_dupes=no_dupes,
+                                           drange=drange)
+        _assert_cons_equal(out, ts.row_minima_consistency_torch_words(
+            a, b, no_dupes, drange), no_dupes)
+    first, last = row_minima_words(a, b, True, drange=drange)
+    _, pf, pl = ts.row_minima_torch_words(a, b, True, drange=drange)
+    assert torch.equal(first, pf) and torch.equal(last, pl)
+
+
+@pytest.mark.parametrize("variant, drange, expect", [
+    (tb.Consistency(1, True), None,
+     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1}),
+    (tb.NoDuplicates(), (0, 63),
+     {"transform": 2, "hamming": 1, "consistency": 0, "agree": 1}),
+    (tb.Consistency(3, True), (0, 63),
+     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1}),
+    (tb.Consistency(2, False), (-10, 40),
+     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1}),
+])
+def test_match_cuda_variants_match_plain(dev, variant, drange, expect):
+    s0, s1 = _pair(dev, 33, 16, 400)
+    cfg = tb.Config(nxcorr_threshold=0.96, subpixel_step=0.1,
+                    min_variance=2.0, variant=variant,
+                    disparity_range=drange)
+    _build.reset_launch_counts()
+    got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
+    assert _build.launch_counts() == expect
+    want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
+    assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
+    v = ~torch.isnan(want_d)
+    assert torch.equal(got_d[v], want_d[v])
+    m = ~torch.isnan(want_c)
+    torch.testing.assert_close(got_c[m], want_c[m], rtol=4e-6, atol=4e-6)

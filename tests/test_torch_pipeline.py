@@ -171,8 +171,6 @@ def test_cuda_backend_raises_without_a_card(rng):
 
 
 @pytest.mark.parametrize("cfg", [
-    tb.Config(variant=tb.Consistency()),
-    tb.Config(disparity_range=(0, 4)),
     tb.Config(precision=tb.Precision.DOUBLE),
 ])
 def test_unported_options_raise(rng, cfg):

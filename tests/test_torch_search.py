@@ -1,7 +1,8 @@
 """Hamming row scan and NoDuplicates search of the port (plain scan and the
 scan kernel's wrappers on CPU tensors) against the JAX package: first/last
 argmin and int16 disparities exactly equal to the XLA scan and to the
-Pallas scan kernels run in interpret mode."""
+Pallas scan kernels run in interpret mode, with the bf16 and the int8
+engine; plus one 40000-wide Consistency search."""
 
 import numpy as np
 import pytest
@@ -9,6 +10,7 @@ import torch
 
 from conftest import make_stack_pair
 
+from libbicos_tpu import Consistency as JConsistency
 from libbicos_tpu import NoDuplicates as JNoDup
 from libbicos_tpu import TransformMode as JMode
 from libbicos_tpu import descriptor as jd
@@ -168,8 +170,49 @@ def test_resolve_backend_rules():
         ts.resolve_backend("xla", cpu)
 
 
-def test_consistency_not_ported(rng):
-    s0, s1, _ = make_stack_pair(rng, 5, 2, 16)
-    with pytest.raises(NotImplementedError, match="Consistency"):
-        ts.search_stack(torch.from_numpy(s0), torch.from_numpy(s1),
-                        TMode.LIMITED, Consistency())
+@pytest.mark.parametrize("n, mode, dtype", [
+    (33, "LIMITED", np.uint8),
+    (9, "FULL", np.uint16),
+    (3, "LIMITED", np.uint8),
+])
+def test_words_wrapper_matches_i8_engine_kernel(rng, n, mode, dtype):
+    """Against the int8-engine twin ``_minima_kernel_i8`` (interpret)."""
+    _, _, w0, w1 = _words(rng, n, 4, 150, mode, dtype)
+    _, want_f, want_l = row_minima_pallas_words(
+        w0, w1, nbits=actual_bits(n, JMode[mode]), need_last=True,
+        interpret=True, engine="i8")
+    f, last = row_minima_words(_i32(w0), _i32(w1), True)
+    np.testing.assert_array_equal(f.numpy(), np.asarray(want_f))
+    np.testing.assert_array_equal(last.numpy(), np.asarray(want_l))
+
+
+@pytest.mark.parametrize("n, mode, dtype", [
+    (33, "LIMITED", np.uint8),
+    (9, "FULL", np.uint16),
+])
+def test_stack_wrapper_matches_i8_engine_kernel(rng, n, mode, dtype):
+    """Against the int8-engine twin ``_minima_kernel_i8_stack``
+    (interpret)."""
+    s0, s1, _ = make_stack_pair(rng, n, 3, 140, dtype)
+    _, want_f, want_l = j_row_minima_stack(
+        s0, s1, mode=JMode[mode], need_last=True, interpret=True,
+        engine="i8")
+    got = row_minima_stack(torch.from_numpy(s0), torch.from_numpy(s1),
+                           mode=TMode[mode], need_last=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_f))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want_l))
+
+
+def test_ultrawide_consistency_matches_xla(rng):
+    """1 row x 40000 columns through the Consistency search: both packings
+    widen past 2^15 columns, forward and reverse."""
+    w1 = np.asarray(rng.integers(0, 1 << 32, size=(1, 40000, 1),
+                                 dtype=np.uint64), dtype=np.uint32)
+    w0 = np.roll(w1, 3, axis=1)        # disparity 3 everywhere
+    w0[0, 30000:30010] = w0[0, 100:110]  # duplicated left columns
+    w0[0, 5] ^= 1                       # one bit off its match
+    want = np.asarray(js.search_words(w0, w1, 32, JConsistency(1, True),
+                                      "xla"))
+    got = ts.search_words(_i32(w0), _i32(w1), 32, Consistency(1, True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != -32768).any() and (want == -32768).any()
