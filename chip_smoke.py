@@ -10,8 +10,12 @@
    and at a ragged small shape (n=9, 7 x 1001, u16, FULL): the scan
    unranged and ranged (0, 511) and with a range that leaves no candidate,
    the consistency scan with and without no_dupes and range (0, 511), and
-   the agree sweep. Then one 2 x 40000 consistency case (reverse minima in
-   global memory).
+   the agree sweep, and the W-band ring step (every band and visit of a
+   4-band ring, unranged, ranged (0, 511), with no candidate, and without
+   last) and the agree of a left column band against the whole right row
+   (column offset). Then one 2 x 40000 consistency case (reverse minima in
+   global memory), the ring step on n=3 LIMITED words (16 x 3300) and on a
+   2 x 20000 n=9 row pair over 4 bands.
 3. Runs four full-size calls ``match(s0, s1, cfg, backend="cuda")`` (n=33,
    2200 x 3300, u8, LIMITED, threshold 0.96, min_variance 2.0, subpixel
    step 0.1) on synthetic input: A the NoDuplicates headline, B
@@ -23,6 +27,16 @@
    at the shapes the call gives them, and the call and its kernels are
    timed (CUDA events, median of 5 after a warm run) beside their plain
    versions (one run each).
+4. Runs four sharded calls on the same input over a virtual mesh of 4
+   bands on the one card (``sharding.make_mesh(4, virtual=True)``): E
+   ``match_sharded_w`` NoDuplicates, F ``match_sharded_w`` Consistency(1,
+   True), G ``match_sharded_w`` NoDuplicates with (0, 511), H
+   ``match_sharded`` (4 row bands) NoDuplicates. Each must launch exactly
+   its path's kernels, run deterministically, and equal the single-card
+   call of its configuration (A, B, C, A) exactly: the same NaN mask,
+   equal disparities, equal corrmaps. The ring's band kernel is compared
+   with its plain fold at E's and G's shapes, and each call's kernels are
+   timed at its shapes beside the call.
 
 The bars: descriptor words bit-identical; first/last argmins and reverse
 argmins equal, sentinels included; agree corrmaps with the same NaN mask
@@ -31,8 +45,8 @@ within 4e-6 of the threshold, or whose best and runner-up sweep NXCORR lie
 within 4e-6 of each other (counted).
 
 Any failure exits non-zero. The last line is the device JSON object; the
-line before it lists the kernels with their launches (summed over the four
-calls), errors and times.
+line before it lists the kernels with their launches (summed over the
+eight calls), errors and times.
 """
 
 import json
@@ -54,7 +68,7 @@ _H = "libbicos_tpu/kernels/hamming.py:"
 SOURCES = {
     "transform": ("libbicos_tpu_torch/csrc/transform.cu", [
         "libbicos_tpu/kernels/transform.py:32", _H + "779", _H + "715",
-        _H + "2007", _H + "890", _H + "1305", _H + "1037"]),
+        _H + "2007", _H + "890", _H + "1305", _H + "1037", _H + "2216"]),
     "hamming": ("libbicos_tpu_torch/csrc/hamming.cu", [
         _H + "345", _H + "574", _H + "779", _H + "715", _H + "2007"]),
     "consistency": ("libbicos_tpu_torch/csrc/consistency.cu", [
@@ -63,7 +77,9 @@ SOURCES = {
     "agree": ("libbicos_tpu_torch/csrc/agree.cu", [
         "libbicos_tpu/kernels/agree.py:483",
         "libbicos_tpu/kernels/agree.py:826"]),
+    "band": ("libbicos_tpu_torch/csrc/band.cu", [_H + "2216", _H + "1813"]),
 }
+NBANDS = 4
 KERNELS = tuple(SOURCES)
 
 
@@ -108,9 +124,10 @@ def sweep_margins(torch, disp, s0, s1, step, minvar):
     from libbicos_tpu_torch import agree as ta
 
     _, h, w = s0.shape
-    _, _, col1c = ta._matched(disp, w, w)
+    w1 = s1.shape[2]
+    _, _, col1c = ta._matched(disp, w, w1)
     s1i = s1.to(torch.int32)
-    y0, y1, y2 = (ta._gather_cols(s1i, (col1c + k).clamp(0, w - 1)).float()
+    y0, y1, y2 = (ta._gather_cols(s1i, (col1c + k).clamp(0, w1 - 1)).float()
                   for k in (-1, 0, 1))
     pa = 0.5 * (y0 - 2.0 * y1 + y2)
     pb = 0.5 * (y2 - y0)
@@ -214,19 +231,22 @@ def check_consistency(torch, label, w0, w1, no_dupes, drange=None):
     return (fp, lp, rp, rlp), ms
 
 
-def check_agree(torch, label, disp, s0, s1, thr, step, minvar):
-    """Agree kernel vs plain (corrmap error noted in ERRS)."""
+def check_agree(torch, label, disp, s0, s1, thr, step, minvar,
+                col_offset=0):
+    """Agree kernel vs plain (corrmap error noted in ERRS); ``s1`` may be
+    wider than ``s0`` (a left column band at ``col_offset``)."""
     from libbicos_tpu_torch import agree as ta
     from libbicos_tpu_torch.kernels.agree import agree_cuda
 
-    ok, ck = agree_cuda(disp, s0, s1, thr, step, minvar)
+    ok, ck = agree_cuda(disp, s0, s1, thr, step, minvar, col_offset)
     if step is None:
-        op, cp = ta.agree_integer(disp, s0, s1, thr, minvar)
+        op, cp = ta.agree_integer(disp, s0, s1, thr, minvar, col_offset)
         op = torch.where(op == ta.INVALID_I16,
                          torch.tensor(float("nan"), device=op.device),
                          op.float())
     else:
-        op, cp = ta.agree_subpixel(disp, s0, s1, thr, step, minvar)
+        op, cp = ta.agree_subpixel(disp, s0, s1, thr, step, minvar,
+                                   col_offset)
     if not torch.equal(torch.isnan(ck), torch.isnan(cp)):
         fail(f"{label}: corrmap NaN masks differ")
     m = ~torch.isnan(cp)
@@ -250,10 +270,82 @@ def check_agree(torch, label, disp, s0, s1, thr, step, minvar):
             fail(f"{label}: {int(bad.sum())} disparities differ outside the "
                  f"tie rules (step={step}, thr={thr})")
         ties = int(excused.sum())
-    print(f"  {label} agree step={step} thr={thr} minvar={minvar}: "
+    print(f"  {label} agree step={step} thr={thr} minvar={minvar} "
+          f"col_offset={col_offset} (w {s0.shape[2]} of {s1.shape[2]}): "
           f"{int(differ.sum())} disparities differ (each at a threshold or "
           f"sweep tie; {ties} tie pixels in their rows); corrmap max err "
           f"{max_err:.3g}", flush=True)
+
+
+def ring_steps(a, b, nbands, drange, every_visit=False):
+    """Every kept (band, visit) step of a W-band ring over ``nbands``
+    column bands of left words ``a`` and right words ``b``, in ring order:
+    ``(j, left band, visiting band, off0, off1)``. ``every_visit`` keeps
+    the visits that the range prunes as well."""
+    from libbicos_tpu_torch import sharding
+
+    mesh = sharding.make_mesh(nbands, virtual=True)
+    a_b = sharding._bands(a, 1, mesh)
+    b_b = sharding._bands(b, 1, mesh)
+    band0, band = a_b[0].shape[1], b_b[0].shape[1]
+    visits = (range(nbands) if every_visit
+              else sharding.wband_ring_visits(nbands, band, drange))
+    return [(j, a_b[j], b_b[(j + i) % nbands], j * band0,
+             (j + i) % nbands * band)
+            for i in visits for j in range(nbands)]
+
+
+def ring_acc(torch, a, nbands, need_last):
+    """Fresh ``(mf, ml)`` accumulators for the ``nbands`` left column bands
+    of words ``a``."""
+    from libbicos_tpu_torch import search as ts
+
+    band0 = -(-a.shape[1] // nbands)
+    acc = []
+    for _ in range(nbands):
+        mf = torch.full((a.shape[0], band0), ts.BIG, dtype=torch.int32,
+                        device=a.device)
+        acc.append((mf, mf.clone() if need_last else None))
+    return acc
+
+
+def run_steps(steps, acc, w1_total, drange, fold):
+    for j, a_j, b_s, off0, off1 in steps:
+        fold(a_j, b_s, off0, off1, *acc[j], w1_total=w1_total, drange=drange)
+
+
+def check_band(torch, label, a, b, drange, need_last=True,
+               every_visit=False):
+    """The band kernel against its plain fold after every step of a
+    ``NBANDS``-band ring; returns (steps, kernel acc, plain ms)."""
+    from libbicos_tpu_torch import search as ts
+    from libbicos_tpu_torch.kernels.band import row_minima_band
+
+    steps = ring_steps(a, b, NBANDS, drange, every_visit)
+    w1 = b.shape[1]
+    got = ring_acc(torch, a, NBANDS, need_last)
+    want = ring_acc(torch, a, NBANDS, need_last)
+    plain_ms = 0.0
+    for step in steps:
+        run_steps([step], got, w1, drange, row_minima_band)
+        _, ms = plain_timed(torch, lambda: run_steps(
+            [step], want, w1, drange, ts.row_minima_band_torch_words))
+        plain_ms += ms
+        j = step[0]
+        for g, x in zip(got[j], want[j]):
+            if g is None:
+                continue
+            note_err("band", g, x)
+            if not torch.equal(g, x):
+                fail(f"{label}: band step (band {j}, offsets {step[3:]}, "
+                     f"range {drange}) differs from plain in "
+                     f"{int((g != x).sum())} pixels")
+    first = torch.cat([ts.decode_minima(*acc, w1)[1] for acc in got],
+                      1)[:, :a.shape[1]]
+    print(f"  {label} band ring ({NBANDS} bands, {len(steps)} steps, range "
+          f"{drange}, need_last={need_last}): equal after every step; "
+          f"{int((first < 0).sum())} pixels without a candidate", flush=True)
+    return steps, got, plain_ms
 
 
 def compare_case(torch, label, s0, s1, mode, steps):
@@ -273,31 +365,46 @@ def compare_case(torch, label, s0, s1, mode, steps):
     width = s0.shape[2]
     for drange in (DRANGE, (width + 100, width + 600)):  # the 2nd: none
         check_scan(torch, label, w0, w1, drange)
+    for drange in (None, DRANGE):
+        check_band(torch, label, w0, w1, drange)
+    # No candidate: the ring would prune every visit, so run them all.
+    check_band(torch, label, w0, w1, (width + 100, width + 600),
+               every_visit=True)
+    check_band(torch, label, w0, w1, None, need_last=False)
+    # A left column band against the whole right row, as the W-banded
+    # agree runs it: band-local disparities and the band's column offset.
+    off, band = width // NBANDS, -(-width // NBANDS)
+    local = disp[:, off:off + band].to(torch.int32)
+    d_shift = torch.where(local == ts.INVALID_I16, ts.INVALID_I16,
+                          local - off).to(torch.int16).contiguous()
+    for step in (steps[0], None):
+        check_agree(torch, label, d_shift,
+                    s0[:, :, off:off + band].contiguous(), s1, THRESHOLD,
+                    step, minvar, col_offset=off)
     for no_dupes in (True, False):
         for drange in (None, DRANGE):
             check_consistency(torch, label, w0, w1, no_dupes, drange)
 
 
-def call_case(torch, bicos, label, cfg, expect, s0, s1, truth):
-    """One full-size call through the kernels: launches (set to 0 just
-    before, read just after), two-run determinism, valid share, time."""
+def call_case(torch, label, call, expect, truth):
+    """One full-size call ``call(backend)`` -> (disparity, corrmap) through
+    the kernels: launches (set to 0 just before, read just after), two-run
+    determinism, valid share, time. Returns (results, disparity,
+    corrmap)."""
     from libbicos_tpu_torch.kernels import _build
 
-    def call(backend="cuda"):
-        return bicos.match(s0, s1, cfg, corrmap=True, backend=backend)
-
     _build.reset_launch_counts()
-    d1, c1 = call()
+    d1, c1 = call("cuda")
     torch.cuda.synchronize()
     launches = _build.launch_counts()
     if launches != expect:
         fail(f"call {label} launched {launches}, expected {expect}")
-    d2, c2 = call()
+    d2, c2 = call("cuda")
     for a, b, what in ((d1, d2, "disparity"), (c1, c2, "corrmap")):
         if not (torch.equal(torch.isnan(a), torch.isnan(b))
                 and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))):
             fail(f"two runs of call {label} gave different {what}")
-    h, w = s0.shape[1:]
+    h, w = truth.shape
     if d1.shape != (h, w) or d1.dtype != torch.float32:
         fail(f"call {label} disparity is {tuple(d1.shape)} {d1.dtype}")
     valid = ~torch.isnan(d1)
@@ -312,13 +419,13 @@ def call_case(torch, bicos, label, cfg, expect, s0, s1, truth):
           f"runs identical", flush=True)
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms = time_ms(torch, call)
+    ms = time_ms(torch, lambda: call("cuda"))
     peak = torch.cuda.max_memory_allocated()
     plain_ms = time_ms(torch, lambda: call("torch"), reps=1, warm=0)
-    return {"launches": launches, "valid_share": share,
-            "within_1px_of_truth": near, "ms": ms, "plain_ms": plain_ms,
-            "stacks_per_s": 1000.0 / ms, "peak_bytes": peak,
-            "call_peak_bytes": peak - held}
+    return ({"launches": launches, "valid_share": share,
+             "within_1px_of_truth": near, "ms": ms, "plain_ms": plain_ms,
+             "stacks_per_s": 1000.0 / ms, "peak_bytes": peak,
+             "call_peak_bytes": peak - held}, d1, c1)
 
 
 def main() -> None:
@@ -393,6 +500,14 @@ def main() -> None:
     for no_dupes in (True, False):
         check_consistency(torch, "wide n=9 2x40000 u8 LIMITED", wu0, wu1,
                           no_dupes)
+    for label, (nn, hh, ww) in (("n=3 16x3300 u8 LIMITED", (3, 16, 3300)),
+                                ("wide n=9 2x20000 u8 LIMITED",
+                                 (9, 2, 20000))):
+        x0, x1, _ = synthetic_stack_pair(nn, hh, ww, seed=5)
+        xw0, xw1 = (td.descriptor_words(torch.from_numpy(x).to(dev), mode)
+                    for x in (x0, x1))
+        for drange in (None, DRANGE):
+            check_band(torch, label, xw0, xw1, drange)
     torch.cuda.synchronize()
     print("phase 2: every kernel agrees with its plain version", flush=True)
 
@@ -410,12 +525,18 @@ def main() -> None:
         "C": (bicos.NoDuplicates(), DRANGE, nodup_path),
         "D": (bicos.Consistency(1, True), DRANGE, cons_path),
     }
-    results, scans, disp_a = {}, {}, None
+    results, scans, single, search_disp, cfgs = {}, {}, {}, {}, {}
     for label, (variant, drange, expect) in calls.items():
         cfg = bicos.Config(nxcorr_threshold=THRESHOLD, subpixel_step=STEP,
                            min_variance=MIN_VARIANCE, mode=mode,
                            variant=variant, disparity_range=drange)
-        res = call_case(torch, bicos, label, cfg, expect, s0, s1, truth)
+        cfgs[label] = cfg
+        res, d1, c1 = call_case(
+            torch, label,
+            lambda backend, cfg=cfg: bicos.match(s0, s1, cfg, corrmap=True,
+                                                 backend=backend),
+            expect, truth)
+        single[label] = (d1, c1)
         # The call's scan kernel against its plain version at its shapes.
         if isinstance(variant, bicos.NoDuplicates):
             kname = "hamming"
@@ -443,8 +564,7 @@ def main() -> None:
         res.update(variant=repr(variant), drange=drange, scan=kname,
                    scan_ms=kms, scan_plain_ms=plain_ms, agree_ms=ams)
         results[label] = res
-        if label == "A":
-            disp_a = disp
+        search_disp[label] = disp
         print(f"call {label} ({variant!r}, range {drange}): "
               f"{res['ms']:.3f} ms with the kernels, {res['plain_ms']:.1f} "
               f"ms plain; {kname} kernel {kms:.3f} ms, plain "
@@ -456,6 +576,93 @@ def main() -> None:
           "deterministically, and each kernel agrees with its plain "
           "version at the call's shapes", flush=True)
 
+    # Phase 4: the sharded paths on NBANDS bands of the one card, each equal
+    # to the single-card call of its configuration.
+    from libbicos_tpu_torch import sharding
+    from libbicos_tpu_torch.kernels.band import row_minima_band
+
+    mesh = sharding.make_mesh(NBANDS, virtual=True, device=dev)
+    wpath = {**path, "transform": 2 * NBANDS, "agree": NBANDS}
+    sharded = {  # label: (single-card call, entry point, launches)
+        "E": ("A", sharding.match_sharded_w, {**wpath, "band": 16}),
+        "F": ("B", sharding.match_sharded_w, {**wpath, "band": 32}),
+        "G": ("C", sharding.match_sharded_w, {**wpath, "band": 8}),
+        "H": ("A", sharding.match_sharded, {**wpath, "hamming": NBANDS}),
+    }
+    col_b0, col_b1 = (sharding._bands(x, 2, mesh) for x in (s0, s1))
+    row_b0, row_b1 = (sharding._bands(x, 1, mesh) for x in (s0, s1))
+    row_w0, row_w1 = ([descriptor_words_cuda(x, mode) for x in b]
+                      for b in (row_b0, row_b1))
+    band_w = col_b0[0].shape[2]
+    offs = [j * band_w for j in range(NBANDS)]
+    for label, (ref, fn, expect) in sharded.items():
+        cfg = cfgs[ref]
+        drange = cfg.disparity_range
+        res, d1, c1 = call_case(
+            torch, label,
+            lambda backend, fn=fn, cfg=cfg: fn(s0, s1, cfg, mesh=mesh,
+                                               corrmap=True,
+                                               backend=backend),
+            expect, truth)
+        for got, want, what in zip((d1, c1), single[ref],
+                                   ("disparity", "corrmap")):
+            bad = (torch.isnan(got) != torch.isnan(want)) | (
+                torch.nan_to_num(got) != torch.nan_to_num(want))
+            if bool(bad.any()):
+                fail(f"call {label}: {what} differs from the single-card "
+                     f"call {ref} in {int(bad.sum())} pixels")
+        # The call's kernels, timed at its shapes.
+        if label == "H":
+            disp_bands = sharding._bands(search_disp[ref], 0, mesh)
+            parts = {
+                "transform": time_ms(torch, lambda: [
+                    descriptor_words_cuda(x, mode) for x in row_b0 + row_b1]),
+                "hamming": time_ms(torch, lambda: [
+                    row_minima_words(a, b, True)
+                    for a, b in zip(row_w0, row_w1)]),
+                "agree": time_ms(torch, lambda: [
+                    agree_cuda(d, a, b, THRESHOLD, STEP, mv)
+                    for d, a, b in zip(disp_bands, row_b0, row_b1)]),
+            }
+        else:
+            if label in ("E", "G"):  # the ring kernel vs plain, full size
+                steps, acc, plain_ms = check_band(torch, f"call {label}", w0,
+                                                  w1, drange)
+                if label == "E":
+                    band_timing = (time_ms(torch, lambda: run_steps(
+                        steps, acc, w, drange, row_minima_band)), plain_ms)
+            rings = [ring_steps(w0, w1, NBANDS, drange)]
+            accs = [ring_acc(torch, w0, NBANDS, True)]
+            if label == "F":
+                rings.append(ring_steps(w1, w0, NBANDS,
+                                        ts.reflect_range(drange)))
+                accs.append(ring_acc(torch, w1, NBANDS, True))
+            col_disp = sharding._bands(search_disp[ref], 1, mesh)
+            parts = {
+                "transform": time_ms(torch, lambda: [
+                    descriptor_words_cuda(x, mode) for x in col_b0 + col_b1]),
+                "band": time_ms(torch, lambda: [
+                    run_steps(st, acc, w, dr, row_minima_band)
+                    for st, acc, dr in zip(
+                        rings, accs, (drange, ts.reflect_range(drange)))]),
+                "agree": time_ms(torch, lambda: [
+                    sharding._agree_banded(d, x, s1, off, cfg, "cuda")
+                    for d, x, off in zip(col_disp, col_b0, offs)]),
+            }
+        res.update(variant=repr(cfg.variant), drange=drange,
+                   entry=fn.__name__, equals=ref, parts_ms=parts)
+        results[label] = res
+        print(f"call {label} ({fn.__name__}, {cfg.variant!r}, range "
+              f"{drange}, {NBANDS} bands on one card): {res['ms']:.3f} ms "
+              f"with the kernels, {res['plain_ms']:.1f} ms plain; its "
+              f"kernels {sum(parts.values()):.3f} ms "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f"; equal to call {ref}; peak device memory "
+              f"{res['peak_bytes']} bytes, {res['call_peak_bytes']} above "
+              f"what was held before the call ({card})", flush=True)
+    print("phase 4: every sharded call launched its path's kernels, ran "
+          "deterministically and equals its single-card call", flush=True)
+
     timings = {
         "transform": (
             time_ms(torch, lambda: descriptor_words_cuda(s0, mode)),
@@ -463,10 +670,11 @@ def main() -> None:
         "hamming": scans["A"][1:],
         "consistency": scans["B"][1:],
         "agree": (
-            time_ms(torch, lambda: agree_cuda(disp_a, s0, s1, THRESHOLD,
-                                              STEP, mv)),
+            time_ms(torch, lambda: agree_cuda(search_disp["A"], s0, s1,
+                                              THRESHOLD, STEP, mv)),
             time_ms(torch, lambda: ta.agree_subpixel(
-                disp_a, s0, s1, THRESHOLD, STEP, mv), reps=3)),
+                search_disp["A"], s0, s1, THRESHOLD, STEP, mv), reps=3)),
+        "band": band_timing,  # the 16 ring steps of call E
     }
     for k, (kms, pms) in timings.items():
         print(f"  {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms ({card})",

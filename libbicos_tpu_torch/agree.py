@@ -89,12 +89,14 @@ def _gather_cols(stack_i32: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
 
 def agree_integer(disp: torch.Tensor, stack0: torch.Tensor,
                   stack1: torch.Tensor, threshold: float,
-                  minvar: Optional[float]):
+                  minvar: Optional[float], col_offset: int = 0):
     """Integer-disparity NXCORR validation.
 
-    ``disp``: ``(H, W)`` int16 (-32768 invalid); stacks ``(n, H, W)``
-    u8/u16. Returns (int16 disparity, f32 corrmap with NaN where not
-    computed)."""
+    ``disp``: ``(H, W)`` int16 (-32768 invalid); ``stack0`` ``(n, H, W)``
+    and ``stack1`` ``(n, H, W1)`` u8/u16 (``W1 > W`` for a left column
+    band against the whole right row). ``col_offset`` is added to each
+    kept disparity (see :func:`agree_subpixel`). Returns (int16
+    disparity, f32 corrmap with NaN where not computed)."""
     _, h, w = stack0.shape
     w1 = stack1.shape[2]
     d, keep, col1c = _matched(disp, w, w1)
@@ -104,14 +106,22 @@ def agree_integer(disp: torch.Tensor, stack0: torch.Tensor,
     nan = _f32(float("nan"), disp.device)
     corr = torch.where(keep, nxc, nan)
     final = keep & ~(nxc < _f32(threshold, disp.device))
-    out = torch.where(final, d, INVALID_I16).to(torch.int16)
+    out = torch.where(final, d + col_offset, INVALID_I16).to(torch.int16)
     return out, corr
 
 
 def agree_subpixel(disp: torch.Tensor, stack0: torch.Tensor,
                    stack1: torch.Tensor, threshold: float, step: float,
-                   minvar: Optional[float]):
+                   minvar: Optional[float], col_offset: int = 0):
     """Subpixel parabola-sweep NXCORR validation.
+
+    ``col_offset``: the global column of ``disp``'s band on the W-banded
+    path, where ``disp`` is band-local (``col - disp`` indexes the whole
+    right row ``stack1``). The output is ``float32(d + col_offset) -
+    best_x``, the offset added in exact integers before the one float
+    rounding, as ``libbicos_tpu.agree.agree_subpixel`` does: adding it to
+    the float output rounds twice and can land 1 ulp off the single-card
+    value (step 0.1).
 
     Returns (f32 disparity with NaN invalid, f32 corrmap)."""
     dev = disp.device
@@ -149,7 +159,7 @@ def agree_subpixel(disp: torch.Tensor, stack0: torch.Tensor,
     nan = _f32(float("nan"), dev)
     corr = torch.where(keep, corr_val, nan)
     final = keep & ~(corr_val < _f32(threshold, dev))
-    dg = d.to(torch.float32)
+    dg = (d + col_offset).to(torch.float32)  # exact int add, one rounding
     ret = torch.where(border, dg, dg - best_x)
     out = torch.where(final, ret, nan)
     return out, corr

@@ -5,6 +5,12 @@
 // interpolated right series. Outputs an f32 disparity (NaN where invalid)
 // and the corrmap (NaN where not computed).
 //
+// The right stack may be wider than the left (w1 >= w): on the W-banded
+// path a left column band is checked against the whole right row, with the
+// band-local disparity d (col1 = col - d) and the band's global column
+// col_offset; the output disparity is float(d + col_offset) - best_x, the
+// offset added in exact integers before the one float rounding.
+//
 // Replaces the Pallas kernels libbicos_tpu/kernels/agree.py::_agree_kernel
 // and ::_agree_window_kernel, which differ only in how the TPU gathers the
 // matched right series (one-hot MXU matmuls, grouped windows); on Hopper a
@@ -47,8 +53,8 @@ struct Params {
   const float* xs;
   float* out;
   float* corr;
-  int64_t hw;
-  int nx, n, w, mod, has_minvar;
+  int64_t hw, hw1;  // shot strides of the left and the right stack
+  int nx, n, w, w1, col_offset, mod, has_minvar;
   float threshold, minvar;
 };
 
@@ -76,15 +82,16 @@ template <typename T>
 __global__ void agree_kernel(const Params<T> p) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= p.hw) return;
-  const int col = static_cast<int>(i % p.w);
+  const int64_t row = i / p.w;
+  const int col = static_cast<int>(i - row * p.w);
   const int d = p.disp[i];
   const int col1 = col - d;
-  if (d == kInvalid || col1 < 0 || col1 >= p.w) {
+  if (d == kInvalid || col1 < 0 || col1 >= p.w1) {
     p.out[i] = CUDART_NAN_F;
     p.corr[i] = CUDART_NAN_F;
     return;
   }
-  const bool border = col1 == 0 || col1 == p.w - 1;
+  const bool border = col1 == 0 || col1 == p.w1 - 1;
 
   const T* left = p.s0 + i;
   const float fn = static_cast<float>(p.n);
@@ -97,18 +104,18 @@ __global__ void agree_kernel(const Params<T> p) {
     var0 = __fmaf_rn(d0, d0, var0);
   }
 
-  const T* y = p.s1 + (i - col) + col1;  // right series at the matched column
+  const T* y = p.s1 + row * p.w1 + col1;  // right series at the matched col
   float corr_val;
-  float ret = static_cast<float>(d);
+  float ret = static_cast<float>(d + p.col_offset);
   if (p.nx == 0 || border) {
     corr_val = nxcorr(p, left, m0, var0,
-                      [&](int t) { return static_cast<float>(y[t * p.hw]); });
+                      [&](int t) { return static_cast<float>(y[t * p.hw1]); });
   } else {
     float best = -1.f, best_x = 0.f;
     for (int ix = 0; ix < p.nx; ++ix) {
       const float x = p.xs[ix];
       auto interp = [&](int t) {
-        const int64_t o = t * p.hw;
+        const int64_t o = t * p.hw1;
         const float y0 = static_cast<float>(y[o - 1]);
         const float y1 = static_cast<float>(y[o]);
         const float y2 = static_cast<float>(y[o + 1]);
@@ -132,8 +139,9 @@ __global__ void agree_kernel(const Params<T> p) {
 
 template <typename T>
 void launch(const void* disp, const void* s0, const void* s1, const void* xs,
-            int nx, void* out, void* corr, int n, int h, int w, int mod,
-            float threshold, float minvar, int has_minvar, cudaStream_t st) {
+            int nx, void* out, void* corr, int n, int h, int w, int w1,
+            int col_offset, int mod, float threshold, float minvar,
+            int has_minvar, cudaStream_t st) {
   Params<T> p;
   p.disp = static_cast<const int16_t*>(disp);
   p.s0 = static_cast<const T*>(s0);
@@ -142,9 +150,12 @@ void launch(const void* disp, const void* s0, const void* s1, const void* xs,
   p.out = static_cast<float*>(out);
   p.corr = static_cast<float*>(corr);
   p.hw = static_cast<int64_t>(h) * w;
+  p.hw1 = static_cast<int64_t>(h) * w1;
   p.nx = nx;
   p.n = n;
   p.w = w;
+  p.w1 = w1;
+  p.col_offset = col_offset;
   p.mod = mod;
   p.has_minvar = has_minvar;
   p.threshold = threshold;
@@ -158,17 +169,17 @@ void launch(const void* disp, const void* s0, const void* s1, const void* xs,
 
 extern "C" int bicos_agree(int device, const void* disp, const void* s0,
                            const void* s1, const void* xs, int nx, void* out,
-                           void* corr, int n, int h, int w, int u16,
-                           float threshold, float minvar, int has_minvar,
-                           void* stream) {
+                           void* corr, int n, int h, int w, int w1,
+                           int col_offset, int u16, float threshold,
+                           float minvar, int has_minvar, void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (u16) {
-    launch<uint16_t>(disp, s0, s1, xs, nx, out, corr, n, h, w, 0xFFFF,
-                     threshold, minvar, has_minvar, st);
+    launch<uint16_t>(disp, s0, s1, xs, nx, out, corr, n, h, w, w1,
+                     col_offset, 0xFFFF, threshold, minvar, has_minvar, st);
   } else {
-    launch<uint8_t>(disp, s0, s1, xs, nx, out, corr, n, h, w, 0xFF,
-                    threshold, minvar, has_minvar, st);
+    launch<uint8_t>(disp, s0, s1, xs, nx, out, corr, n, h, w, w1,
+                    col_offset, 0xFF, threshold, minvar, has_minvar, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,24 +20,21 @@
 // and each warp only the (32 + dmax - dmin) columns its own pixels can
 // reach, so its cost is O(W * range), not O(W^2).
 //
-// Design: one block per (row, tile of TPB left pixels). Each thread holds
-// its left descriptor in registers and its (best, first, last) state; the
-// right row's window streams through shared memory in chunks of CHUNK
-// columns, which every thread reads as broadcasts. Each thread walks the
-// columns in increasing order: cost < best moves `first`, cost <= best
-// moves `last`. A row of any width is covered, since only one chunk is
-// resident at a time (a whole row at W=3300 and nw=4 is 52.8 KB, over the
-// 48 KB static limit). A pixel with no in-range column keeps the sentinels
-// first = -1, last = -2, as the JAX scan decodes them.
+// Design: one block per (row, tile of TPB left pixels), each thread one
+// left pixel, the right row streamed through shared memory in chunks
+// (row_scan.cuh, shared with the W-band ring step band.cu). A pixel with no
+// in-range column keeps the sentinels first = -1, last = -2, as the JAX
+// scan decodes them.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_scan.cuh"
+
 namespace {
 
-constexpr int TPB = 128;
-constexpr int CHUNK = 512;
+using bicos::CHUNK;
+using bicos::TPB;
 
 template <int NW, bool RANGED>
 __global__ void __launch_bounds__(TPB)
@@ -49,56 +46,12 @@ row_minima_kernel(const uint32_t* __restrict__ words0,
   const int64_t row = blockIdx.x;
   const int t0 = blockIdx.y * TPB;
   const int c0 = t0 + threadIdx.x;
-  const bool live = c0 < wid0;
-
-  uint32_t a[NW];
-  const uint32_t* left = words0 + (row * wid0 + c0) * NW;
-#pragma unroll
-  for (int k = 0; k < NW; ++k) a[k] = live ? left[k] : 0u;
-
-  // Column windows [lo, hi): the block's (what its tile can reach), the
-  // warp's (what its 32 pixels can reach; warp-uniform) and the thread's.
-  int blo = 0, bhi = wid1, wlo = 0, whi = wid1, mylo = 0, myhi = wid1;
-  if (RANGED) {
-    const int tend = min(t0 + TPB, wid0);
-    blo = max(0, t0 - dmax);
-    bhi = min(wid1, tend - dmin);
-    const int w0c = t0 + (threadIdx.x & ~31);
-    const int wend = min(w0c + 32, wid0);
-    wlo = max(0, w0c - dmax);
-    whi = min(wid1, wend - dmin);
-    mylo = max(0, c0 - dmax);
-    myhi = live ? min(wid1, c0 - dmin + 1) : 0;
-  }
-  const unsigned span = myhi > mylo ? static_cast<unsigned>(myhi - mylo) : 0u;
-
-  const uint32_t* right = words1 + row * wid1 * NW;
-  int best = INT_MAX, bf = -1, bl = -2;
-  for (int base = blo; base < bhi; base += CHUNK) {
-    const int cols = min(CHUNK, bhi - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < cols * NW; i += TPB)
-      tile[i] = right[static_cast<int64_t>(base) * NW + i];
-    __syncthreads();
-    const int jlo = RANGED ? max(0, wlo - base) : 0;
-    const int jhi = RANGED ? min(cols, whi - base) : cols;
-    for (int j = jlo; j < jhi; ++j) {
-      int cost = 0;
-#pragma unroll
-      for (int k = 0; k < NW; ++k) cost += __popc(a[k] ^ tile[j * NW + k]);
-      const int col = base + j;
-      const bool ok =
-          !RANGED || static_cast<unsigned>(col - mylo) < span;
-      if (ok && cost < best) {
-        best = cost;
-        bf = col;
-      }
-      if (ok && cost <= best) bl = col;
-    }
-  }
-  if (live) {
-    first[row * wid0 + c0] = bf;
-    if (need_last) last[row * wid0 + c0] = bl;
+  const bicos::ScanResult r = bicos::scan_row<NW, RANGED>(
+      words0 + row * wid0 * NW, words1 + row * wid1 * NW, tile, t0, wid0,
+      wid1, dmin, dmax);
+  if (c0 < wid0) {
+    first[row * wid0 + c0] = r.first;
+    if (need_last) last[row * wid0 + c0] = r.last;
   }
 }
 

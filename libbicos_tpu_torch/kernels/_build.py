@@ -35,7 +35,8 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"transform": 0, "hamming": 0, "consistency": 0, "agree": 0}
+LAUNCHES = {"transform": 0, "hamming": 0, "consistency": 0, "agree": 0,
+            "band": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,10 +55,14 @@ _SIGNATURES = {
     # nw, no_dupes, has_range, dmin, dmax, stream
     "bicos_consistency": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
-    # disp, s0, s1, xs, nx, out, corr, n, h, w, u16, threshold, minvar,
-    # has_minvar, stream
-    "bicos_agree": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _F,
-                    _I, _P),
+    # disp, s0, s1, xs, nx, out, corr, n, h, w, w1, col_offset, u16,
+    # threshold, minvar, has_minvar, stream
+    "bicos_agree": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _F, _F, _I, _P),
+    # words0, words1, mf, ml, h, wid0, band, wid1, nw, off1, w1_total,
+    # has_range, dmin, dmax, stream
+    "bicos_row_minima_band": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P),
 }
 
 

@@ -1,0 +1,60 @@
+"""W-band ring step kernel (``csrc/band.cu``).
+
+The Hopper counterpart of the Pallas ``libbicos_tpu/kernels/hamming.py``
+kernels ``_minima_kernel_band`` (via ``row_minima_words_band``) and, after
+the transform kernel on each band, ``_minima_kernel_band_stack`` (via
+``row_minima_stack_band``). Its plain version is
+:func:`libbicos_tpu_torch.search.row_minima_band_torch_words`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..search import PACK_K, row_minima_band_torch_words
+from . import _build
+from .hamming import check_words, range_args
+
+
+def row_minima_band(words0: torch.Tensor, words1: torch.Tensor, off0: int,
+                    off1: int, mf: torch.Tensor, ml: Optional[torch.Tensor],
+                    *, w1_total: int, drange=None) -> None:
+    """Fold one visiting right band into a left band's running minima, in
+    place: ``mf = min(mf, cost * PACK_K + gcol)`` and, unless ``ml`` is
+    None, ``ml = min(ml, cost * PACK_K + (w1_total-1-gcol))``.
+
+    ``words0``: ``(H, W0b, nw)`` int32 left band at global column ``off0``;
+    ``words1``: ``(H, band, nw)`` int32 right band at global column
+    ``off1``; ``mf``/``ml``: ``(H, W0b)`` int32, started from
+    ``search.BIG``. Right columns at or past ``w1_total`` and pairs whose
+    global ``col0 - col1`` lies outside ``drange`` are skipped. CPU tensors
+    go through the plain version; CUDA tensors launch the kernel."""
+    accs = [t for t in (mf, ml) if t is not None]
+    if all(t.device.type == "cpu" for t in [words0, words1] + accs):
+        row_minima_band_torch_words(words0, words1, off0, off1, mf, ml,
+                                    w1_total=w1_total, drange=drange)
+        return
+    h, w0, band, nw = check_words("row_minima_band", words0, words1)
+    _build.require_cuda("row_minima_band", words0, *accs)
+    if any(t.dtype != torch.int32 or tuple(t.shape) != (h, w0)
+           for t in accs):
+        raise ValueError(f"mf/ml must be ({h}, {w0}) int32 tensors")
+    if off1 < 0 or w1_total > PACK_K:
+        raise ValueError(
+            f"need off1 >= 0 and w1_total <= {PACK_K}, got {off1}, "
+            f"{w1_total}")
+    wid1 = max(0, min(band, w1_total - off1))
+    # The global col0 - col1 = (off0 - off1) + (c0 - j) in band coordinates.
+    shift = off0 - off1
+    has_range, dmin, dmax = range_args(
+        None if drange is None else (drange[0] - shift, drange[1] - shift),
+        w0, wid1)
+    rc = _build.library().bicos_row_minima_band(
+        words0.device.index, words0.data_ptr(), words1.data_ptr(),
+        mf.data_ptr(), None if ml is None else ml.data_ptr(), h, w0, band,
+        wid1, nw, off1, w1_total, has_range, dmin, dmax,
+        _build.stream_of(words0))
+    _build.check(rc, "band")
+    _build.count_launch("band")

@@ -66,6 +66,50 @@ def _check_ported(cfg: Config) -> None:
         raise NotImplementedError("DOUBLE precision is not ported yet")
 
 
+def _prepare(stack0, stack1, cfg: Config, corrmap: bool, backend: str,
+             device):
+    """The checks every matching surface makes, in ``match``'s order:
+    ``(stack0, stack1, resolved backend)`` on the run's device."""
+    if backend not in _search.BACKENDS:
+        raise ValueError(
+            f"backend must be one of {_search.BACKENDS}, got {backend!r}")
+    stack0 = _as_tensor(stack0, backend, device)
+    stack1 = _as_tensor(stack1, backend, device)
+    _validate_inputs(stack0, stack1)
+    validate_stack(stack0.shape[0], cfg.mode)
+    if corrmap and cfg.nxcorr_threshold is None:
+        raise ValueError("corrmap requires cfg.nxcorr_threshold")
+    _check_ported(cfg)
+    return stack0, stack1, _search.resolve_backend(backend, stack0, stack1)
+
+
+def agree_stage(disp, stack0, stack1, cfg: Config, backend: str,
+                col_offset: int = 0):
+    """The agree stage: ``(disparity, corrmap)``, int16 without subpixel
+    refinement, f32 with it. ``stack1`` may be wider than ``stack0`` and
+    ``col_offset`` nonzero on the W-banded path (see
+    :func:`agree.agree_subpixel`)."""
+    minvar = (None if cfg.min_variance is None
+              else cfg.min_variance * stack0.shape[0])
+    step = cfg.subpixel_step
+    if backend == "cuda":
+        from .kernels.agree import agree_cuda
+
+        out_f, corr = agree_cuda(disp, stack0, stack1, cfg.nxcorr_threshold,
+                                 step, minvar, col_offset)
+        if step is not None:
+            return out_f, corr
+        return torch.where(
+            torch.isnan(out_f), _agree.INVALID_I16,
+            torch.nan_to_num(out_f).to(torch.int32)).to(torch.int16), corr
+    if step is not None:
+        return _agree.agree_subpixel(disp, stack0, stack1,
+                                     cfg.nxcorr_threshold, step, minvar,
+                                     col_offset)
+    return _agree.agree_integer(disp, stack0, stack1, cfg.nxcorr_threshold,
+                                minvar, col_offset)
+
+
 def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
           backend: str = "auto", device=None):
     """Match two multishot stereo stacks.
@@ -82,19 +126,8 @@ def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
     Returns:
       ``disparity`` on the run's device, or ``(disparity, corrmap)``.
     """
-    if backend not in _search.BACKENDS:
-        raise ValueError(
-            f"backend must be one of {_search.BACKENDS}, got {backend!r}")
-    stack0 = _as_tensor(stack0, backend, device)
-    stack1 = _as_tensor(stack1, backend, device)
-    _validate_inputs(stack0, stack1)
-    n = stack0.shape[0]
-    validate_stack(n, cfg.mode)
-    if corrmap and cfg.nxcorr_threshold is None:
-        raise ValueError("corrmap requires cfg.nxcorr_threshold")
-    _check_ported(cfg)
-    backend = _search.resolve_backend(backend, stack0, stack1)
-
+    stack0, stack1, backend = _prepare(stack0, stack1, cfg, corrmap,
+                                       backend, device)
     disp = _search.search_stack(stack0, stack1, cfg.mode, cfg.variant,
                                 backend=backend, drange=cfg.disparity_range)
     # The agree stage takes no range. The JAX package widens its agree
@@ -105,25 +138,7 @@ def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
     # as the JAX XLA agree does.
     corr = None
     if cfg.nxcorr_threshold is not None:
-        minvar = None if cfg.min_variance is None else cfg.min_variance * n
-        step = cfg.subpixel_step
-        if backend == "cuda":
-            from .kernels.agree import agree_cuda
-
-            out_f, corr = agree_cuda(disp, stack0, stack1,
-                                     cfg.nxcorr_threshold, step, minvar)
-            if step is not None:
-                disp = out_f
-            else:
-                disp = torch.where(
-                    torch.isnan(out_f), _agree.INVALID_I16,
-                    torch.nan_to_num(out_f).to(torch.int32)).to(torch.int16)
-        elif step is not None:
-            disp, corr = _agree.agree_subpixel(
-                disp, stack0, stack1, cfg.nxcorr_threshold, step, minvar)
-        else:
-            disp, corr = _agree.agree_integer(
-                disp, stack0, stack1, cfg.nxcorr_threshold, minvar)
+        disp, corr = agree_stage(disp, stack0, stack1, cfg, backend)
     if corrmap:
         return disp, corr
     return disp

@@ -101,29 +101,24 @@ def decode_packed_minima(mf, ml, w1: int, need_last: bool,
     return cost, first, last
 
 
-def row_minima_torch_words(
-    words0: torch.Tensor, words1: torch.Tensor, need_last: bool,
-    pair_budget: int = PAIR_BUDGET, drange=None,
-) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Plain scan: ``(cost, first, last-or-None)``, each ``(H, W0)`` int32,
-    for ``(H, W0, nw)`` and ``(H, W1, nw)`` int32 words. ``drange``:
-    optional inclusive ``(dmin, dmax)`` on ``col0 - col1``; a pixel with no
-    candidate in range gets ``first = -1, last = -2``."""
+def _fold_packed(words0, words1, mf, ml, *, off0: int, off1: int,
+                 w1_total: int, pack_k: int, drange, pair_budget: int):
+    """Fold ``cost * pack_k + gcol`` into ``mf`` and ``cost * pack_k +
+    (w1_total-1-gcol)`` into ``ml`` (None: skipped) with a plain minimum,
+    in place, for the left columns ``off0 + i`` and the right columns
+    ``gcol = off1 + j < w1_total``. Pairs outside ``drange`` count as
+    ``BIG``."""
     h, w0, _ = words0.shape
-    w1 = words1.shape[1]
+    w1 = min(words1.shape[1], w1_total - off1)
+    if w1 <= 0:
+        return
     dev = words0.device
-    pack_k = PACK_K if w1 <= PACK_K else 1 << (w1 - 1).bit_length()
-    if pack_k > 1 << 22:
-        raise ValueError(
-            f"image width {w1} > {1 << 22} overflows the int32 cost packing")
     cols = w1 if w0 * w1 <= pair_budget else max(1, pair_budget // w0)
     rows = max(1, pair_budget // (w0 * cols))
-    col0 = torch.arange(w0, dtype=torch.int32, device=dev)[:, None]
-    mf = torch.full((h, w0), BIG, dtype=torch.int32, device=dev)
-    ml = torch.full_like(mf, BIG)
+    col0 = off0 + torch.arange(w0, dtype=torch.int32, device=dev)[:, None]
     for c0 in range(0, w1, cols):
-        col = torch.arange(c0, min(w1, c0 + cols), dtype=torch.int32,
-                           device=dev)
+        col = off1 + torch.arange(c0, min(w1, c0 + cols), dtype=torch.int32,
+                                  device=dev)
         bad = None
         if drange is not None:
             d = col0 - col  # (W0, C) candidate disparity
@@ -136,18 +131,66 @@ def row_minima_torch_words(
             if bad is not None:
                 pf = torch.where(bad, BIG, pf)
             mf[rs] = torch.minimum(mf[rs], pf.amin(dim=-1))
-            if need_last:
-                pl = cost + (w1 - 1 - col)
+            if ml is not None:
+                pl = cost + (w1_total - 1 - col)
                 if bad is not None:
                     pl = torch.where(bad, BIG, pl)
                 ml[rs] = torch.minimum(ml[rs], pl.amin(dim=-1))
-    cost, first, last = decode_packed_minima(mf, ml, w1, need_last, pack_k)
-    if drange is not None:
-        none = cost > 256
-        first = torch.where(none, -1, first)
-        if need_last:
-            last = torch.where(none, -2, last)
+
+
+def decode_minima(mf, ml, w1: int, pack_k: int = PACK_K):
+    """:func:`decode_packed_minima` (``ml`` None without last) with the
+    no-candidate sentinels: where only ``BIG`` was folded in (decoded cost
+    above 256), ``first = -1, last = -2``."""
+    cost, first, last = decode_packed_minima(mf, ml, w1, ml is not None,
+                                             pack_k)
+    none = cost > 256
+    first = torch.where(none, -1, first)
+    if last is not None:
+        last = torch.where(none, -2, last)
     return cost, first, last
+
+
+def row_minima_torch_words(
+    words0: torch.Tensor, words1: torch.Tensor, need_last: bool,
+    pair_budget: int = PAIR_BUDGET, drange=None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain scan: ``(cost, first, last-or-None)``, each ``(H, W0)`` int32,
+    for ``(H, W0, nw)`` and ``(H, W1, nw)`` int32 words. ``drange``:
+    optional inclusive ``(dmin, dmax)`` on ``col0 - col1``; a pixel with no
+    candidate in range gets ``first = -1, last = -2``."""
+    h, w0, _ = words0.shape
+    w1 = words1.shape[1]
+    pack_k = PACK_K if w1 <= PACK_K else 1 << (w1 - 1).bit_length()
+    if pack_k > 1 << 22:
+        raise ValueError(
+            f"image width {w1} > {1 << 22} overflows the int32 cost packing")
+    mf = torch.full((h, w0), BIG, dtype=torch.int32, device=words0.device)
+    ml = torch.full_like(mf, BIG) if need_last else None
+    _fold_packed(words0, words1, mf, ml, off0=0, off1=0, w1_total=w1,
+                 pack_k=pack_k, drange=drange, pair_budget=pair_budget)
+    return decode_minima(mf, ml, w1, pack_k)
+
+
+def row_minima_band_torch_words(
+    words0: torch.Tensor, words1: torch.Tensor, off0: int, off1: int,
+    mf: torch.Tensor, ml: Optional[torch.Tensor], *, w1_total: int,
+    drange=None, pair_budget: int = PAIR_BUDGET,
+) -> None:
+    """Plain W-band ring step, in place: a left band ``(H, W0b, nw)`` at
+    global column ``off0`` against one visiting right band ``(H, band,
+    nw)`` at global column ``off1``, folded into the running ``(H, W0b)``
+    int32 minima ``mf`` (``cost * PACK_K + gcol``) and ``ml`` (``cost *
+    PACK_K + (w1_total-1-gcol)``; None without last). Right columns at or
+    past ``w1_total`` (ring padding) and pairs outside ``drange`` (on the
+    global ``col0 - col1``) are skipped. Start both from ``BIG``; decode
+    with :func:`decode_minima`. The plain version beside
+    ``kernels/band.py``."""
+    if w1_total > PACK_K:
+        raise ValueError(f"image width > {PACK_K} not supported")
+    _fold_packed(words0, words1, mf, ml, off0=off0, off1=off1,
+                 w1_total=w1_total, pack_k=PACK_K, drange=drange,
+                 pair_budget=pair_budget)
 
 
 def _lookup_reverse(first1, last1, first0):
@@ -192,9 +235,15 @@ def row_minima_consistency_torch_words(words0: torch.Tensor,
     return (first0, last0) + _lookup_reverse(first1, last1, first0)
 
 
+def _left_cols(w0: int, col_off: int, device) -> torch.Tensor:
+    """Global left columns ``col_off + arange(w0)`` as a ``(1, W0)`` row
+    (``col_off``: the band's offset on the W-banded path)."""
+    return col_off + torch.arange(w0, dtype=torch.int32, device=device)[None]
+
+
 def _finish_nodupes(first: torch.Tensor, last: torch.Tensor,
-                    w0: int) -> torch.Tensor:
-    col0 = torch.arange(w0, dtype=torch.int32, device=first.device)[None, :]
+                    w0: int, col_off: int = 0) -> torch.Tensor:
+    col0 = _left_cols(w0, col_off, first.device)
     valid = (first == last) & (first >= 0)
     disp = torch.where(valid, col0 - first, INVALID_I16)
     return disp.to(torch.int16)
@@ -208,9 +257,10 @@ def _finish_consistency(first0, last0, first1, last1,
 
 
 def _finish_consistency_gathered(first0, last0, rc0, rok, h: int, w0: int,
-                                 variant: Consistency) -> torch.Tensor:
+                                 variant: Consistency,
+                                 col_off: int = 0) -> torch.Tensor:
     """Decode from reverse minima already read at the forward argmin."""
-    col0 = torch.arange(w0, dtype=torch.int32, device=first0.device)[None, :]
+    col0 = _left_cols(w0, col_off, first0.device)
     valid = torch.ones((h, w0), dtype=torch.bool, device=first0.device)
     if variant.no_dupes:
         valid = first0 == last0
@@ -222,13 +272,14 @@ def _finish_consistency_gathered(first0, last0, rc0, rok, h: int, w0: int,
     return torch.where(valid, disp, INVALID_I16).to(torch.int16)
 
 
-def _finish_gathered(variant: Consistency, first0, last0, rc0, rc0_last):
+def _finish_gathered(variant: Consistency, first0, last0, rc0, rc0_last,
+                     col_off: int = 0):
     """The reverse no_dupes check (``rc0 == rc0_last``), then the decode."""
     h, w0 = first0.shape
     rok = (rc0 == rc0_last if variant.no_dupes
            else torch.ones((h, w0), dtype=torch.bool, device=first0.device))
     return _finish_consistency_gathered(first0, last0, rc0, rok, h, w0,
-                                        variant)
+                                        variant, col_off)
 
 
 def search_words(words0: torch.Tensor, words1: torch.Tensor, nbits: int,

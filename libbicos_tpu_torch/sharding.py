@@ -1,0 +1,335 @@
+"""Scale-out: the pipeline over row bands (H-band) or column bands (W-band).
+
+The counterpart of ``libbicos_tpu.sharding``:
+
+* **H-banding** (:func:`match_sharded`, :func:`match_batched_sharded`):
+  every stage is row-independent (epipolar geometry), so each band runs
+  :func:`pipeline.match` on its rows and only the results are gathered.
+* **W-banding** (:func:`match_sharded_w`, :func:`row_minima_wband`): for
+  very wide rows each band holds a column band of left descriptors and the
+  right descriptor bands travel a ring; each visit folds into running packed
+  ``cost * PACK_K + col`` minima (``kernels/band.py``), so the reduction
+  across bands is a plain elementwise minimum and NoDuplicates ties keep
+  first-occurrence order exactly. Visits that no pair of a bounded
+  disparity range can reach are skipped (:func:`wband_ring_visits`).
+
+A mesh (:func:`make_mesh`) is one of two transports behind one interface:
+
+* :class:`DistMesh`: one band per process of ``torch.distributed``'s default
+  group (gloo on the CPU, NCCL on cards); the ring moves bands with
+  ``batch_isend_irecv``.
+* :class:`LocalMesh` (``make_mesh(n, virtual=True, device=...)``): ``n``
+  bands held by this process on one device; the ring rotates a list. It is
+  how one card runs the sharded paths, as the JAX suite runs them on a
+  virtual CPU mesh.
+
+Every process passes the full stacks and gets the full ``(H, W)`` maps
+back, as the JAX surfaces take and return global arrays.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+from . import pipeline as _pipeline
+from . import search as _search
+from .config import Config, NoDuplicates
+from .descriptor import descriptor_words
+from .search import BIG, PACK_K
+
+
+class LocalMesh:
+    """``size`` bands held by this process on ``device`` (None: where the
+    inputs lie); ``shift`` and ``all_gather`` move no data between
+    processes."""
+
+    def __init__(self, size: int, device=None):
+        if size < 1:
+            raise ValueError(f"a mesh needs at least one band, got {size}")
+        self.size = size
+        self.ranks = tuple(range(size))
+        self.device = device
+
+    def shift(self, payloads: List[torch.Tensor], k: int):
+        """Band ``r`` receives band ``(r + k) % size``'s payload."""
+        k %= self.size
+        return payloads[k:] + payloads[:k]
+
+    def all_gather(self, tensors: Sequence[torch.Tensor], dim: int):
+        """Every band's tensor, in band order, concatenated along ``dim``."""
+        return torch.cat(list(tensors), dim)
+
+
+class DistMesh:
+    """One band per process of the default ``torch.distributed`` group; this
+    process plays rank ``dist.get_rank()``."""
+
+    def __init__(self, device=None):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.size = dist.get_world_size()
+        self.ranks = (dist.get_rank(),)
+        self.device = device
+
+    def shift(self, payloads: List[torch.Tensor], k: int):
+        """This rank receives rank ``(r + k) % size``'s payload and sends
+        its own to rank ``(r - k) % size`` (the JAX ``ppermute`` with
+        ``perm=[((d + k) % n, d)]``)."""
+        k %= self.size
+        if k == 0:
+            return payloads
+        dist = self._dist
+        (x,) = payloads
+        (r,) = self.ranks
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, (r - k) % self.size),
+               dist.P2POp(dist.irecv, out, (r + k) % self.size)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [out]
+
+    def all_gather(self, tensors: Sequence[torch.Tensor], dim: int):
+        """Every rank's tensor, in rank order, concatenated along ``dim``.
+        int16 travels as int32 (neither gloo nor NCCL moves it)."""
+        (x,) = tensors
+        wire = (x.to(torch.int32) if x.dtype == torch.int16
+                else x.contiguous())
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        self._dist.all_gather(parts, wire)
+        return torch.cat(parts, dim).to(x.dtype)
+
+
+def make_mesh(n_devices: Optional[int] = None, *, virtual: bool = False,
+              device=None):
+    """A 1-D mesh of ``n_devices`` bands.
+
+    ``virtual=True``: a :class:`LocalMesh` of ``n_devices`` bands on
+    ``device``. Otherwise, with ``torch.distributed`` initialised, a
+    :class:`DistMesh` over the default group (``n_devices`` defaults to, and
+    must equal, its world size); without it, only one band."""
+    if virtual:
+        if n_devices is None:
+            raise ValueError("a virtual mesh needs n_devices")
+        return LocalMesh(n_devices, device)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if n_devices is not None and n_devices != world:
+            # Another count would attribute results to bands never used.
+            raise ValueError(f"requested {n_devices} devices but the "
+                             f"process group has {world}")
+        return DistMesh(device)
+    if n_devices not in (None, 1):
+        raise ValueError(
+            f"requested {n_devices} devices without torch.distributed "
+            "initialised; pass virtual=True for bands on one device")
+    return LocalMesh(1, device)
+
+
+def _bands(x: torch.Tensor, dim: int, mesh) -> List[torch.Tensor]:
+    """``x`` zero-padded along ``dim`` to a multiple of ``mesh.size`` and
+    cut into equal bands: the bands this process holds, contiguous."""
+    pad = (-x.shape[dim]) % mesh.size
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim)
+    parts = x.chunk(mesh.size, dim)
+    return [parts[r].contiguous() for r in mesh.ranks]
+
+
+def match_sharded(stack0, stack1, cfg: Config = Config(), *, mesh=None,
+                  corrmap: bool = False, backend: str = "auto"):
+    """H-banded ``match``: rows cut into ``mesh.size`` bands, each matched
+    by :func:`pipeline.match`, the results gathered. Same arguments and
+    results as ``match``, plus ``mesh`` (default :func:`make_mesh`)."""
+    mesh = make_mesh() if mesh is None else mesh
+    stack0, stack1, backend = _pipeline._prepare(
+        stack0, stack1, cfg, corrmap, backend, mesh.device)
+    h = stack0.shape[1]
+    outs = []
+    for b0, b1 in zip(_bands(stack0, 1, mesh), _bands(stack1, 1, mesh)):
+        out = _pipeline.match(b0, b1, cfg, corrmap=corrmap, backend=backend)
+        outs.append(out if corrmap else (out, None))
+    disp = mesh.all_gather([d for d, _ in outs], 0)[:h]
+    if corrmap:
+        return disp, mesh.all_gather([c for _, c in outs], 0)[:h]
+    return disp
+
+
+def match_batched_sharded(stacks0, stacks1, cfg: Config = Config(), *,
+                          mesh=None, corrmap: bool = False,
+                          backend: str = "auto"):
+    """``(batch, n, H, W)`` pairs with the batch folded into the row axis
+    (:func:`pipeline._fold_batch`) and the ``batch * H`` rows H-banded
+    (:func:`match_sharded`)."""
+    flat0, flat1, (b, h, w) = _pipeline._fold_batch(stacks0, stacks1)
+    out = match_sharded(flat0, flat1, cfg, mesh=mesh, corrmap=corrmap,
+                        backend=backend)
+    if corrmap:
+        disp, corr = out
+        return disp.reshape(b, h, w), corr.reshape(b, h, w)
+    return out.reshape(b, h, w)
+
+
+def wband_ring_visits(ndev: int, band: int, drange) -> list:
+    """The ring visits that can contribute under a disparity range.
+
+    Visit ``i`` brings band ``idx`` the right band ``src = (idx + i) %
+    ndev``, a relative column offset ``rel = (src - idx) * band``: ``i *
+    band`` for bands that do not wrap, ``(i - ndev) * band`` for those that
+    do. With ``d = col0 - col1`` in ``[dmin, dmax]`` a visit contributes
+    only when ``[-rel - (band-1), -rel + band-1]`` overlaps the range;
+    visits empty for every band are skipped. Same list as
+    ``libbicos_tpu.sharding.wband_ring_visits``."""
+    if drange is None:
+        return list(range(ndev))
+    dmin, dmax = int(drange[0]), int(drange[1])
+
+    def overlap(rel):
+        return -rel - (band - 1) <= dmax and -rel + band - 1 >= dmin
+
+    visits = []
+    for i in range(ndev):
+        rels = [i * band] if i == 0 else [i * band, (i - ndev) * band]
+        if any(overlap(r) for r in rels):
+            visits.append(i)
+    return visits
+
+
+def _ring_fold(mesh, visits, payloads, fold_visit) -> None:
+    """Visit every index in ``visits`` (ascending), jumping skipped
+    rotations with one composed shift per gap: at visit ``i`` the held band
+    ``j`` (rank ``mesh.ranks[j]``) sees the payload of rank ``(rank + i) %
+    size`` through ``fold_visit(j, src, payload)``."""
+    pos = 0
+    cur = payloads
+    for i in visits:
+        if i > pos:
+            cur = mesh.shift(cur, i - pos)
+            pos = i
+        for j, rank in enumerate(mesh.ranks):
+            fold_visit(j, (rank + i) % mesh.size, cur[j])
+
+
+def _ring_minima(words0, words1, need_last: bool, mesh, band: int, w: int,
+                 backend: str, drange=None):
+    """Ring minima of the held left bands ``words0`` against every right
+    band (``words1``: the held right bands, ``band`` columns each, ``w``
+    real columns in all): per held band ``(cost, first, last-or-None)``,
+    ``first = -1, last = -2`` where no pair is in ``drange``."""
+    if backend == "cuda":
+        from .kernels.band import row_minima_band as fold
+    else:
+        fold = _search.row_minima_band_torch_words
+    band0 = words0[0].shape[1]
+    mf = [torch.full(x.shape[:2], BIG, dtype=torch.int32, device=x.device)
+          for x in words0]
+    ml = [torch.full_like(m, BIG) if need_last else None for m in mf]
+
+    def visit(j, src, cur):
+        fold(words0[j], cur, mesh.ranks[j] * band0, src * band, mf[j], ml[j],
+             w1_total=w, drange=drange)
+
+    _ring_fold(mesh, wband_ring_visits(mesh.size, band, drange), words1,
+               visit)
+    return [_search.decode_minima(f, l, w) for f, l in zip(mf, ml)]
+
+
+def row_minima_wband(words0, words1, need_last: bool, *, mesh,
+                     backend: str = "auto", drange=None):
+    """W-banded scan minima over a ring: ``(cost, first, last-or-None)``,
+    each ``(H, W0)`` int32, for ``(H, W0, nw)`` and ``(H, W1, nw)`` int32
+    words, as :func:`search.row_minima_torch_words` (``cost`` is defined
+    where ``first >= 0``). ``drange``: inclusive ``(dmin, dmax)`` on ``col0
+    - col1``; visits that cannot contribute are skipped."""
+    w0, w1 = words0.shape[1], words1.shape[1]
+    if max(w0, w1) > PACK_K:
+        raise ValueError(f"image width > {PACK_K} not supported")
+    backend = _search.resolve_backend(backend, words0, words1)
+    b0 = _bands(words0, 1, mesh)
+    b1 = _bands(words1, 1, mesh)
+    res = _ring_minima(b0, b1, need_last, mesh, b1[0].shape[1], w1, backend,
+                       drange)
+    cost, first, last = (
+        None if res[0][k] is None
+        else mesh.all_gather([r[k] for r in res], 1)[:, :w0]
+        for k in range(3))
+    return cost, first, last
+
+
+def match_sharded_w(stack0, stack1, cfg: Config = Config(), *, mesh=None,
+                    corrmap: bool = False, backend: str = "auto"):
+    """W-banded ``match`` for very wide images: each band transforms its
+    own columns, the scan runs as a ring of right descriptor bands
+    (:func:`row_minima_wband`'s engine; Consistency adds a second ring with
+    the roles swapped and the range reflected, and gathers the reverse
+    argmins for the lookup), and agree checks each left band against the
+    whole right row. The results equal :func:`pipeline.match`'s exactly.
+    Same arguments as ``match``, plus ``mesh``."""
+    mesh = make_mesh() if mesh is None else mesh
+    stack0, stack1, backend = _pipeline._prepare(
+        stack0, stack1, cfg, corrmap, backend, mesh.device)
+    n, h, w = stack0.shape
+    if w >= PACK_K:
+        # The ring packs cost * PACK_K + col; w == PACK_K is refused too, as
+        # by the JAX package, whose int16 band-local disparity shift could
+        # then meet the -32768 sentinel on a valid pixel.
+        raise ValueError(f"image width >= {PACK_K} not supported")
+    s0b = _bands(stack0, 2, mesh)
+    band = s0b[0].shape[2]
+    if backend == "cuda":
+        from .kernels.transform import descriptor_words_cuda as transform
+    else:
+        transform = descriptor_words
+    words0 = [transform(s, cfg.mode) for s in s0b]
+    words1 = [transform(s, cfg.mode) for s in _bands(stack1, 2, mesh)]
+    offs = [r * band for r in mesh.ranks]
+    variant = cfg.variant
+    drange = cfg.disparity_range
+    nodupes = isinstance(variant, NoDuplicates) or variant.no_dupes
+    fwd = _ring_minima(words0, words1, nodupes, mesh, band, w, backend,
+                       drange)
+    if isinstance(variant, NoDuplicates):
+        disps = [_search._finish_nodupes(f, l, band, off)
+                 for (_, f, l), off in zip(fwd, offs)]
+    else:
+        rev = _ring_minima(words1, words0, nodupes, mesh, band, w, backend,
+                           _search.reflect_range(drange))
+        # The reverse argmins live with the band owning each right column:
+        # gather them for the lookup at every left pixel's best column.
+        f1g = mesh.all_gather([f for _, f, _ in rev], 1)[:, :w]
+        l1g = (mesh.all_gather([l for _, _, l in rev], 1)[:, :w]
+               if nodupes else None)
+        disps = [_search._finish_gathered(
+            variant, f, l, *_search._lookup_reverse(f1g, l1g, f), off)
+            for (_, f, l), off in zip(fwd, offs)]
+
+    corrs = None
+    if cfg.nxcorr_threshold is not None:
+        # Each process holds the whole right stack already (the inputs are
+        # global), which is what the JAX path all-gathers.
+        outs = [_agree_banded(d, s0, stack1, off, cfg, backend)
+                for d, s0, off in zip(disps, s0b, offs)]
+        disps = [d for d, _ in outs]
+        corrs = [c for _, c in outs]
+    disp = mesh.all_gather(disps, 1)[:, :w]
+    if not corrmap:
+        return disp
+    return disp, mesh.all_gather(corrs, 1)[:, :w]
+
+
+def _agree_banded(disp, stack0_band, stack1, offset: int, cfg: Config,
+                  backend: str):
+    """Agree for one left column band at global column ``offset`` against
+    the whole right row: the disparity shifted to band-local columns
+    (``col_local - (d - offset) = col_global - d``), and ``offset`` given
+    back inside agree (exact integers before the float rounding)."""
+    d_shift = torch.where(disp == _search.INVALID_I16, _search.INVALID_I16,
+                          disp.to(torch.int32) - offset).to(torch.int16)
+    return _pipeline.agree_stage(d_shift, stack0_band, stack1, cfg, backend,
+                                 col_offset=offset)

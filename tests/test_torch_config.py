@@ -134,8 +134,11 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import libbicos_tpu_torch, libbicos_tpu_torch.io\n"
         "import libbicos_tpu_torch.kernels.agree\n"
+        "import libbicos_tpu_torch.kernels.band\n"
+        "import libbicos_tpu_torch.kernels.consistency\n"
         "import libbicos_tpu_torch.kernels.hamming\n"
         "import libbicos_tpu_torch.kernels.transform\n"
+        "import libbicos_tpu_torch.sharding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'libbicos_tpu')]\n"
         "assert not bad, bad\n"

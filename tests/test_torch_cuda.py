@@ -93,7 +93,7 @@ def test_match_cuda_launches_every_kernel_and_matches_plain(dev):
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
     counts = _build.launch_counts()
     assert counts == {"transform": 2, "hamming": 1, "consistency": 0,
-                      "agree": 1}
+                      "agree": 1, "band": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
     v = ~torch.isnan(want_d)
@@ -208,13 +208,17 @@ def test_consistency_kernel_ultrawide(dev, drange):
 
 @pytest.mark.parametrize("variant, drange, expect", [
     (tb.Consistency(1, True), None,
-     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1}),
+     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
+      "band": 0}),
     (tb.NoDuplicates(), (0, 63),
-     {"transform": 2, "hamming": 1, "consistency": 0, "agree": 1}),
+     {"transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
+      "band": 0}),
     (tb.Consistency(3, True), (0, 63),
-     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1}),
+     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
+      "band": 0}),
     (tb.Consistency(2, False), (-10, 40),
-     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1}),
+     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
+      "band": 0}),
 ])
 def test_match_cuda_variants_match_plain(dev, variant, drange, expect):
     s0, s1 = _pair(dev, 33, 16, 400)
@@ -230,3 +234,132 @@ def test_match_cuda_variants_match_plain(dev, variant, drange, expect):
     assert torch.equal(got_d[v], want_d[v])
     m = ~torch.isnan(want_c)
     torch.testing.assert_close(got_c[m], want_c[m], rtol=4e-6, atol=4e-6)
+
+
+def _band_steps(a, b, nbands, need_last, drange):
+    """Every (band, visit) of a ring over ``nbands`` column bands, kernel and
+    plain fold from the same accumulators; returns the kernel's minima."""
+    from libbicos_tpu_torch.kernels.band import row_minima_band
+
+    w1_total = b.shape[1]
+    band0 = -(-a.shape[1] // nbands)
+    band = -(-w1_total // nbands)
+    a = torch.nn.functional.pad(a, (0, 0, 0, band0 * nbands - a.shape[1]))
+    b = torch.nn.functional.pad(b, (0, 0, 0, band * nbands - w1_total))
+    out = []
+    for idx in range(nbands):
+        a_j = a[:, idx * band0:(idx + 1) * band0].contiguous()
+        acc = [torch.full(a_j.shape[:2], ts.BIG, dtype=torch.int32,
+                          device=a.device) for _ in range(2)]
+        ref = [t.clone() for t in acc]
+        for i in range(nbands):
+            src = (idx + i) % nbands
+            b_s = b[:, src * band:(src + 1) * band].contiguous()
+            row_minima_band(a_j, b_s, idx * band0, src * band, acc[0],
+                            acc[1] if need_last else None,
+                            w1_total=w1_total, drange=drange)
+            ts.row_minima_band_torch_words(
+                a_j, b_s, idx * band0, src * band, ref[0],
+                ref[1] if need_last else None, w1_total=w1_total,
+                drange=drange)
+            assert torch.equal(acc[0], ref[0]), (idx, src)
+            assert torch.equal(acc[1], ref[1]), (idx, src)
+        out.append(acc)
+    return out
+
+
+@pytest.mark.parametrize("need_last", [True, False])
+@pytest.mark.parametrize("drange", [None, (0, 511), (-5, 20), (5000, 6000)])
+@pytest.mark.parametrize("n, mode, w0, w1, nbands", [
+    (33, "LIMITED", 1100, 1100, 4), (3, "LIMITED", 700, 700, 3),
+    (16, "FULL", 513, 700, 4), (65, "LIMITED", 300, 129, 2),
+])
+def test_band_kernel_equal(dev, n, mode, w0, w1, nbands, drange, need_last):
+    """``csrc/band.cu`` against its plain fold at every ring step, ring
+    padding (widths not a multiple of the band count) included."""
+    a, b = _words_pair(dev, n, mode, 5, w0, w1)
+    _band_steps(a, b, nbands, need_last, drange)
+
+
+def test_band_kernel_ties_and_ultrawide(dev):
+    """Duplicate columns in different bands, on 2 x 20000 rows."""
+    b = _random_words(dev, 2, 20000, 1, 3)
+    a = torch.roll(b, 7, dims=1).contiguous()
+    b[:, 19000:19010] = b[:, 100:110]
+    for drange in (None, (-300, 300)):
+        acc = _band_steps(a, b, 4, True, drange)
+        cost, first, last = ts.decode_minima(
+            torch.cat([x[0] for x in acc], 1)[:, :20000],
+            torch.cat([x[1] for x in acc], 1)[:, :20000], 20000)
+        _, pf, pl = ts.row_minima_torch_words(a, b, True, drange=drange)
+        assert torch.equal(first, pf) and torch.equal(last, pl)
+
+
+@pytest.mark.parametrize("step, minvar", [(0.1, 66.0), (None, None),
+                                          (0.25, 18.0)])
+def test_agree_kernel_band_col_offset(dev, step, minvar):
+    """A left column band against the whole right row (w1 != w), with the
+    band-local disparity and a column offset."""
+    s0, s1 = _pair(dev, 33, 6, 400)
+    disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
+                           tb.NoDuplicates(), backend="torch")
+    off = 150
+    local = disp[:, off:off + 100].to(torch.int32)
+    d = torch.where(local == ta.INVALID_I16, ta.INVALID_I16,
+                    local - off).to(torch.int16).contiguous()
+    s0b = s0[:, :, off:off + 100].contiguous()
+    out, corr = agree_cuda(d, s0b, s1, 0.5, step, minvar, col_offset=off)
+    if step is None:
+        po, pc = ta.agree_integer(d, s0b, s1, 0.5, minvar, col_offset=off)
+        po = torch.where(po == ta.INVALID_I16,
+                         torch.tensor(float("nan"), device=dev), po.float())
+    else:
+        po, pc = ta.agree_subpixel(d, s0b, s1, 0.5, step, minvar,
+                                   col_offset=off)
+    assert torch.equal(torch.isnan(corr), torch.isnan(pc))
+    m = ~torch.isnan(pc)
+    torch.testing.assert_close(corr[m], pc[m], rtol=4e-6, atol=4e-6)
+    assert torch.equal(torch.isnan(out), torch.isnan(po))
+    assert torch.equal(out[~torch.isnan(po)], po[~torch.isnan(po)])
+
+
+@pytest.mark.parametrize("variant, drange, band_launches", [
+    (tb.NoDuplicates(), None, 9),
+    (tb.Consistency(1, True), None, 18),
+    (tb.NoDuplicates(), (0, 63), 6),
+])
+def test_match_sharded_w_on_one_card_equals_match(dev, variant, drange,
+                                                  band_launches):
+    """W-banded matching over 3 bands on one card (a virtual mesh) equals
+    the single-card call exactly, corrmap included."""
+    from libbicos_tpu_torch import sharding
+
+    s0, s1 = _pair(dev, 33, 16, 400)
+    cfg = tb.Config(nxcorr_threshold=0.96, subpixel_step=0.1,
+                    min_variance=2.0, variant=variant,
+                    disparity_range=drange)
+    want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
+    mesh = sharding.make_mesh(3, virtual=True, device=dev)
+    _build.reset_launch_counts()
+    got_d, got_c = sharding.match_sharded_w(s0, s1, cfg, mesh=mesh,
+                                            corrmap=True, backend="cuda")
+    assert _build.launch_counts() == {
+        "transform": 6, "hamming": 0, "consistency": 0, "agree": 3,
+        "band": band_launches}
+    for got, want in ((got_d, want_d), (got_c, want_c)):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    hd, hc = sharding.match_sharded(s0, s1, cfg, mesh=mesh, corrmap=True)
+    assert torch.equal(torch.nan_to_num(hd), torch.nan_to_num(want_d))
+    assert torch.equal(torch.nan_to_num(hc), torch.nan_to_num(want_c))
+
+
+def test_distmesh_nccl_four_cards_equal_localmesh(dev, tmp_path):
+    """The sharded paths over NCCL, one process and one card per band
+    (``tests/test_torch_dist.py``'s workers and cases), equal to a
+    ``LocalMesh`` of 4 bands on card 0. Needs 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    from test_torch_dist import run_group
+
+    run_group(tmp_path, 4, "nccl")
