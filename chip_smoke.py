@@ -13,9 +13,15 @@
    the agree sweep, and the W-band ring step (every band and visit of a
    4-band ring, unranged, ranged (0, 511), with no candidate, and without
    last) and the agree of a left column band against the whole right row
-   (column offset). Then one 2 x 40000 consistency case (reverse minima in
-   global memory), the ring step on n=3 LIMITED words (16 x 3300) and on a
-   2 x 20000 n=9 row pair over 4 bands.
+   (column offset). The dynamic window at both shapes and at n=65 u16 (16
+   x 1412, LIMITED), for each (chunk, wcap) of (256, 640) and (512, 1024)
+   that the width admits: the bases kernel on the search disparity and on
+   a mixed field (planted matches make some chunks fall back), and the
+   windowed agree on the mixed field against the global-read agree (equal
+   bit for bit, corrmap included) and the plain agree; the DOUBLE agree
+   against the plain f64 agree, bit for bit. Then one 2 x 40000 consistency case
+   (reverse minima in global memory), the ring step on n=3 LIMITED words
+   (16 x 3300) and on a 2 x 20000 n=9 row pair over 4 bands.
 3. Runs four full-size calls ``match(s0, s1, cfg, backend="cuda")`` (n=33,
    2200 x 3300, u8, LIMITED, threshold 0.96, min_variance 2.0, subpixel
    step 0.1) on synthetic input: A the NoDuplicates headline, B
@@ -26,7 +32,12 @@
    scan kernel and the agree kernel are compared with their plain versions
    at the shapes the call gives them, and the call and its kernels are
    timed (CUDA events, median of 5 after a warm run) beside their plain
-   versions (one run each).
+   versions (one run each). Then two more calls of A's configuration: I
+   with the dynamic window (``BICOS_AGREE_DYNWIN=640``, chunk 256), which
+   launches the bases kernel and the windowed agree and must equal A bit
+   for bit, with a share of windowed chunks above 0; J in DOUBLE, whose
+   agree kernel must equal the plain f64 agree bit for bit at the call's
+   shapes.
 4. Runs four sharded calls on the same input over a virtual mesh of 4
    bands on the one card (``sharding.make_mesh(4, virtual=True)``): E
    ``match_sharded_w`` NoDuplicates, F ``match_sharded_w`` Consistency(1,
@@ -45,11 +56,16 @@ within 4e-6 of the threshold, or whose best and runner-up sweep NXCORR lie
 within 4e-6 of each other (counted).
 
 Any failure exits non-zero. The last line is the device JSON object; the
-line before it lists the kernels with their launches (summed over the
-eight calls), errors and times.
+line before it lists the kernels with their launches (summed over the ten
+calls), errors, times and bounds. A kernel's bound is the least time the
+card could take for its work on this run's inputs: the larger of its bytes
+(each input read once, each output written once) over the memory rate and
+its operations over the rate of their type (see ``PEAK``).
 """
 
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -78,9 +94,20 @@ SOURCES = {
         "libbicos_tpu/kernels/agree.py:483",
         "libbicos_tpu/kernels/agree.py:826"]),
     "band": ("libbicos_tpu_torch/csrc/band.cu", [_H + "2216", _H + "1813"]),
+    "bases": ("libbicos_tpu_torch/csrc/bases.cu",
+              ["libbicos_tpu/kernels/agree.py:298"]),
 }
 NBANDS = 4
 KERNELS = tuple(SOURCES)
+WINDOWS = ((256, 640), (512, 1024))  # (chunk, wcap) of the dynamic window
+# One H100 SXM at its 700 W limit: HBM bytes/s (NVIDIA's data sheet), and
+# instructions/s from the SM count, the 1.98 GHz boost clock and the per-SM
+# rates of the CUDA programming guide's throughput table for compute
+# capability 9.0: 128 FP32 add/mul/fma a clock (67 TFLOP/s counting an fma
+# as two), 64 FP64, 16 popcounts and 16 conversions (F2I, I2F) a clock.
+SM_CLOCKS = 132 * 1.98e9
+PEAK = {"bytes": 3.35e12, "fp32": 128 * SM_CLOCKS, "fp64": 64 * SM_CLOCKS,
+        "popc": 16 * SM_CLOCKS, "conv": 16 * SM_CLOCKS}
 
 
 def fail(msg: str) -> None:
@@ -117,12 +144,68 @@ def time_ms(torch, fn, reps: int = REPS, warm: int = 1) -> float:
     return statistics.median(plain_timed(torch, fn)[1] for _ in range(reps))
 
 
-def sweep_margins(torch, disp, s0, s1, step, minvar):
-    """Plain-path (best, runner-up) sweep NXCORR per pixel; the runner-up
-    is the best over the x whose interpolated series differs from the
-    best x's."""
+def bound(nbytes: float, **ops) -> tuple:
+    """``(ms, "bytes" | "operations")``: the larger of ``nbytes`` over the
+    memory rate and each ``ops[kind]`` over ``PEAK[kind]``."""
+    t = {"bytes": nbytes / PEAK["bytes"],
+         "operations": max((v / PEAK[k] for k, v in ops.items()),
+                           default=0.0)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def scan_bound(h, w, nw, drange, out_bytes):
+    """A scan's bound on an ``h x w`` pair of ``nw``-word descriptors: one
+    popcount per (left pixel, right column in ``drange``, word); both word
+    arrays read once, ``out_bytes`` written per pixel."""
+    if drange is None:
+        pairs = w * w
+    else:
+        dmin, dmax = drange
+        pairs = sum(max(0, min(c - dmin, w - 1) - max(c - dmax, 0) + 1)
+                    for c in range(w))
+    return bound(2 * h * w * nw * 4 + h * w * out_bytes,
+                 popc=h * pairs * nw)
+
+
+def agree_bound(torch, disp, s0, s1, nx, double=False):
+    """The agree function's bound on this input. A kept pixel that sweeps
+    needs, per shot and x, 5 FP32 operations for the interpolated sample,
+    4 in the compute type for its NXCORR terms (mean add, difference, two
+    fmas) and 2 conversions (the round-to-int and back); once per shot, 6
+    FP32 operations (the parabola), 3 in the compute type (left statistics)
+    and 4 conversions. A kept pixel on the integer check needs 7n
+    operations in the compute type and 2n conversions. The compute type is
+    FP32, or FP64 with ``double``."""
+    n = s0.shape[0]
+    w1 = s1.shape[2]
+    col1 = torch.arange(disp.shape[1], device=disp.device)[None] - disp.long()
+    keep = (disp != -32768) & (col1 >= 0) & (col1 < w1)
+    sweep = int((keep & (col1 != 0) & (col1 != w1 - 1)).sum()) if nx else 0
+    plain = int(keep.sum()) - sweep
+    fp32 = sweep * (5 * n * nx + 6 * n)
+    comp = sweep * (4 * n * nx + 3 * n) + plain * 7 * n
+    conv = sweep * (2 * n * nx + 4 * n) + plain * 2 * n
+    nbytes = ((s0.numel() + s1.numel()) * s0.element_size()
+              + disp.numel() * (2 + 4 + 4))
+    if double:
+        return bound(nbytes, fp32=fp32, fp64=comp, conv=conv)
+    return bound(nbytes, fp32=fp32 + comp, conv=conv)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal NaN masks and equal values elsewhere."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def sweep_margins(torch, disp, s0, s1, step, minvar, dtype=None):
+    """Plain-path (best, runner-up) sweep NXCORR per pixel, in ``dtype``
+    (float32 by default); the runner-up is the best over the x whose
+    interpolated series differs from the best x's."""
     from libbicos_tpu_torch import agree as ta
 
+    dtype = dtype or torch.float32
     _, h, w = s0.shape
     w1 = s1.shape[2]
     _, _, col1c = ta._matched(disp, w, w1)
@@ -131,7 +214,7 @@ def sweep_margins(torch, disp, s0, s1, step, minvar):
                   for k in (-1, 0, 1))
     pa = 0.5 * (y0 - 2.0 * y1 + y2)
     pb = 0.5 * (y2 - y0)
-    diff0, var0 = ta._stats(s0.to(torch.int32).float())
+    diff0, var0 = ta._stats(s0.to(torch.int32).to(dtype))
     mod = 0xFFFF if s0.dtype == torch.uint16 else 0xFF
 
     def series(x):
@@ -141,14 +224,14 @@ def sweep_margins(torch, disp, s0, s1, step, minvar):
         return it, ta._nxcorr_from(diff0, var0, it, minvar)
 
     xs = ta.subpixel_xgrid(step)
-    best = torch.full((h, w), -1.0, device=s0.device)
+    best = torch.full((h, w), -1.0, dtype=dtype, device=s0.device)
     best_series = torch.zeros_like(y1)
     for x in xs:
         it, c = series(x)
         upd = best < c
         best = torch.where(upd, c, best)
         best_series = torch.where(upd[None], it, best_series)
-    runner = torch.full((h, w), -float("inf"), device=s0.device)
+    runner = torch.full((h, w), -float("inf"), dtype=dtype, device=s0.device)
     for x in xs:
         it, c = series(x)
         differs = (it != best_series).any(dim=0)
@@ -232,49 +315,127 @@ def check_consistency(torch, label, w0, w1, no_dupes, drange=None):
 
 
 def check_agree(torch, label, disp, s0, s1, thr, step, minvar,
-                col_offset=0):
+                col_offset=0, double=False, window=None):
     """Agree kernel vs plain (corrmap error noted in ERRS); ``s1`` may be
-    wider than ``s0`` (a left column band at ``col_offset``)."""
+    wider than ``s0`` (a left column band at ``col_offset``). ``double``:
+    both in DOUBLE. ``window = (chunk, wcap, bases)``: the windowed kernel,
+    also held to the global-read kernel bit for bit. Returns the kernel's
+    (disparity, corrmap)."""
     from libbicos_tpu_torch import agree as ta
+    from libbicos_tpu_torch.config import Precision
     from libbicos_tpu_torch.kernels.agree import agree_cuda
 
-    ok, ck = agree_cuda(disp, s0, s1, thr, step, minvar, col_offset)
+    prec = Precision.DOUBLE if double else Precision.SINGLE
+    ok, ck = agree_cuda(disp, s0, s1, thr, step, minvar, col_offset,
+                        precision=prec)
+    if window is not None:
+        chunk, wcap, bases = window
+        wk = agree_cuda(disp, s0, s1, thr, step, minvar, precision=prec,
+                        bases=bases, chunk=chunk, wcap=wcap)
+        for got, want, what in zip(wk, (ok, ck), ("disparity", "corrmap")):
+            if not same_bits(torch, got, want):
+                fail(f"{label}: the windowed agree's {what} differs from "
+                     f"the global-read agree's (chunk {chunk}, wcap {wcap})")
+        ok, ck = wk
     if step is None:
-        op, cp = ta.agree_integer(disp, s0, s1, thr, minvar, col_offset)
+        op, cp = ta.agree_integer(disp, s0, s1, thr, minvar, col_offset,
+                                  prec)
         op = torch.where(op == ta.INVALID_I16,
                          torch.tensor(float("nan"), device=op.device),
                          op.float())
     else:
         op, cp = ta.agree_subpixel(disp, s0, s1, thr, step, minvar,
-                                   col_offset)
+                                   col_offset, prec)
     if not torch.equal(torch.isnan(ck), torch.isnan(cp)):
         fail(f"{label}: corrmap NaN masks differ")
     m = ~torch.isnan(cp)
     err = (ck[m] - cp[m]).abs()
-    if bool((err > TOL + TOL * cp[m].abs()).any()):
+    # DOUBLE sums serially in f64 and rounds once to f32 on both sides, as
+    # the JAX package's XLA agree does: it is held equal bit for bit.
+    tol = 0.0 if double else TOL
+    if bool((err > tol + tol * cp[m].abs()).any()):
         fail(f"{label}: corrmap off by up to {float(err.max())}")
     max_err = float(err.max()) if err.numel() else 0.0
     ERRS["agree"] = max(ERRS["agree"], max_err)
     differ = ~((torch.isnan(ok) & torch.isnan(op)) | (ok == op))
     ties = 0
+    if double and bool(differ.any()):
+        fail(f"{label}: {int(differ.sum())} DOUBLE disparities differ")
     if bool(differ.any()):
         # Only the rows with a difference need the sweep margins.
         rows = differ.any(dim=1).nonzero()[:, 0]
         excused = (cp[rows] - thr).abs() <= TOL
         if step is not None:
-            best, runner = sweep_margins(torch, disp[rows], s0[:, rows],
-                                         s1[:, rows], step, minvar)
+            best, runner = sweep_margins(
+                torch, disp[rows], s0[:, rows], s1[:, rows], step, minvar,
+                torch.float64 if double else torch.float32)
             excused |= (best - runner) <= TOL
         bad = differ[rows] & ~excused
         if bool(bad.any()):
             fail(f"{label}: {int(bad.sum())} disparities differ outside the "
                  f"tie rules (step={step}, thr={thr})")
         ties = int(excused.sum())
-    print(f"  {label} agree step={step} thr={thr} minvar={minvar} "
+    kind = ("" if window is None else
+            f" windowed (chunk {window[0]}, wcap {window[1]}; equal to the "
+            f"global-read kernel bit for bit)") + (" DOUBLE" if double else "")
+    print(f"  {label} agree{kind} step={step} thr={thr} minvar={minvar} "
           f"col_offset={col_offset} (w {s0.shape[2]} of {s1.shape[2]}): "
           f"{int(differ.sum())} disparities differ (each at a threshold or "
           f"sweep tie; {ties} tie pixels in their rows); corrmap max err "
           f"{max_err:.3g}", flush=True)
+    return ok, ck
+
+
+def check_bases(torch, label, disp, chunk, wcap):
+    """Bases kernel vs plain, exactly; returns (bases, windowed share)."""
+    from libbicos_tpu_torch import agree as ta
+    from libbicos_tpu_torch.kernels.bases import chunk_window_bases_cuda
+
+    w = disp.shape[1]
+    wp = -(-w // chunk) * chunk
+    got = chunk_window_bases_cuda(disp, w, wp, wcap, chunk)
+    want = ta.chunk_window_bases(disp, w, wp, wcap, chunk)
+    note_err("bases", got, want)
+    if not torch.equal(got, want):
+        fail(f"{label}: bases (chunk {chunk}, wcap {wcap}) differ from "
+             f"plain in {int((got != want).sum())} chunks")
+    share = float((got >= 0).float().mean())
+    print(f"  {label} bases chunk={chunk} wcap={wcap}: equal; windowed "
+          f"share {share:.6f} of {got.numel()} chunks", flush=True)
+    return got, share
+
+
+def mixed_disp(torch, disp):
+    """``disp`` with, in every 4th row, every 97th column matched to column
+    0: chunks that hold such a pixel and lie far to the right fall back."""
+    d = disp.clone()
+    cols = torch.arange(0, d.shape[1], 97, device=d.device)
+    d[::4, cols] = cols.to(torch.int16)
+    return d
+
+
+def compare_window(torch, label, disp, s0, s1, steps):
+    """The dynamic window and DOUBLE on one input: bases on ``disp`` and on
+    a mixed field, the windowed agree on the mixed field, the DOUBLE agree
+    on ``disp``."""
+    from libbicos_tpu_torch.kernels.agree import resolve_chunk_wcap
+
+    minvar = MIN_VARIANCE * s0.shape[0]
+    mixed = mixed_disp(torch, disp)
+    for chunk, wcap in WINDOWS:
+        if not resolve_chunk_wcap(s0.shape[2], wcap, chunk)[1]:
+            continue
+        check_bases(torch, label, disp, chunk, wcap)
+        bases, share = check_bases(torch, f"{label} mixed", mixed, chunk,
+                                   wcap)
+        if not 0 < share < 1:
+            fail(f"{label}: the mixed field gives windowed share {share}")
+        for step in steps:
+            check_agree(torch, f"{label} mixed", mixed, s0, s1, THRESHOLD,
+                        step, minvar, window=(chunk, wcap, bases))
+    for step in steps:
+        check_agree(torch, label, disp, s0, s1, THRESHOLD, step, minvar,
+                    double=True)
 
 
 def ring_steps(a, b, nbands, drange, every_visit=False):
@@ -384,6 +545,7 @@ def compare_case(torch, label, s0, s1, mode, steps):
     for no_dupes in (True, False):
         for drange in (None, DRANGE):
             check_consistency(torch, label, w0, w1, no_dupes, drange)
+    compare_window(torch, label, disp, s0, s1, steps)
 
 
 def call_case(torch, label, call, expect, truth):
@@ -508,6 +670,13 @@ def main() -> None:
                     for x in (x0, x1))
         for drange in (None, DRANGE):
             check_band(torch, label, xw0, xw1, drange)
+    # The window's largest block: n=65 u16 at wcap 1024 stages 133,380
+    # bytes of shared memory (the opt-in limit).
+    x0, x1 = (torch.from_numpy(x).to(dev) for x in synthetic_stack_pair(
+        65, 16, 1412, dtype=np.uint16, seed=3)[:2])
+    compare_window(torch, "n=65 16x1412 u16 LIMITED",
+                   ts.search_stack(x0, x1, mode, bicos.NoDuplicates(),
+                                   "torch"), x0, x1, (STEP, None))
     torch.cuda.synchronize()
     print("phase 2: every kernel agrees with its plain version", flush=True)
 
@@ -516,6 +685,7 @@ def main() -> None:
     w0 = descriptor_words_cuda(s0, mode)
     w1 = descriptor_words_cuda(s1, mode)
     mv = MIN_VARIANCE * n
+    nx = len(ta.subpixel_xgrid(STEP))
     path = {k: 0 for k in KERNELS}
     nodup_path = {**path, "transform": 2, "hamming": 1, "agree": 1}
     cons_path = {**path, "transform": 2, "consistency": 1, "agree": 1}
@@ -562,7 +732,11 @@ def main() -> None:
                                                 STEP, mv))
         scans[label] = (kname, kms, plain_ms)
         res.update(variant=repr(variant), drange=drange, scan=kname,
-                   scan_ms=kms, scan_plain_ms=plain_ms, agree_ms=ams)
+                   scan_ms=kms, scan_plain_ms=plain_ms, agree_ms=ams,
+                   scan_bound_ms=scan_bound(
+                       h, w, w0.shape[2], drange,
+                       8 if kname == "hamming" else 16)[0],
+                   agree_bound_ms=agree_bound(torch, disp, s0, s1, nx)[0])
         results[label] = res
         search_disp[label] = disp
         print(f"call {label} ({variant!r}, range {drange}): "
@@ -572,6 +746,88 @@ def main() -> None:
               f"memory {res['peak_bytes']} bytes, "
               f"{res['call_peak_bytes']} above what was held before the "
               f"call ({card})", flush=True)
+
+    # Call I: A with the dynamic window. The same search disparity as A.
+    chunk, wcap = WINDOWS[0]
+    wp = -(-w // chunk) * chunk
+    knobs = {"BICOS_AGREE_DYNWIN": str(wcap), "BICOS_AGREE_CHUNK": str(chunk)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        res, d1, c1 = call_case(
+            torch, "I", lambda backend: bicos.match(
+                s0, s1, cfgs["A"], corrmap=True, backend=backend),
+            {**nodup_path, "bases": 1}, truth)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for got, want, what in zip((d1, c1), single["A"],
+                               ("disparity", "corrmap")):
+        if not same_bits(torch, got, want):
+            fail(f"call I: {what} differs from call A's")
+    disp = search_disp["A"]
+    bases, share = check_bases(torch, "call I", disp, chunk, wcap)
+    if share <= 0:
+        fail("call I: no chunk took the window")
+    check_agree(torch, "call I", disp, s0, s1, THRESHOLD, STEP, mv,
+                window=(chunk, wcap, bases))
+    from libbicos_tpu_torch.kernels.bases import chunk_window_bases_cuda
+
+    bases_ms = time_ms(torch, lambda: chunk_window_bases_cuda(
+        disp, w, wp, wcap, chunk))
+    bases_plain_ms = time_ms(torch, lambda: ta.chunk_window_bases(
+        disp, w, wp, wcap, chunk), reps=3)
+    bases_bound = bound(disp.numel() * 2 + bases.numel() * 4)
+    wms = time_ms(torch, lambda: agree_cuda(
+        disp, s0, s1, THRESHOLD, STEP, mv, bases=bases, chunk=chunk,
+        wcap=wcap))
+    res.update(variant=repr(cfgs["A"].variant), window=[chunk, wcap],
+               window_share=share, equals="A", bases_ms=bases_ms,
+               bases_plain_ms=bases_plain_ms, agree_ms=wms,
+               agree_global_ms=results["A"]["agree_ms"],
+               bases_bound_ms=bases_bound[0],
+               agree_bound_ms=results["A"]["agree_bound_ms"])
+    results["I"] = res
+    print(f"call I (A with BICOS_AGREE_DYNWIN={wcap}, chunk {chunk}): "
+          f"{res['ms']:.3f} ms with the kernels (A {results['A']['ms']:.3f}),"
+          f" {res['plain_ms']:.1f} ms plain; equal to call A bit for bit; "
+          f"windowed share {share:.6f} of {bases.numel()} chunks; bases "
+          f"kernel {bases_ms:.4f} ms, plain {bases_plain_ms:.3f} ms; "
+          f"windowed agree {wms:.3f} ms, global-read agree "
+          f"{results['A']['agree_ms']:.3f} ms ({card})", flush=True)
+
+    # Call J: A in DOUBLE.
+    cfg = dataclasses.replace(cfgs["A"], precision=bicos.Precision.DOUBLE)
+    res, d1, c1 = call_case(
+        torch, "J", lambda backend: bicos.match(s0, s1, cfg, corrmap=True,
+                                                backend=backend),
+        nodup_path, truth)
+    check_agree(torch, "call J", disp, s0, s1, THRESHOLD, STEP, mv,
+                double=True)
+    jms = time_ms(torch, lambda: agree_cuda(
+        disp, s0, s1, THRESHOLD, STEP, mv,
+        precision=bicos.Precision.DOUBLE))
+    jplain = time_ms(torch, lambda: ta.agree_subpixel(
+        disp, s0, s1, THRESHOLD, STEP, mv,
+        precision=bicos.Precision.DOUBLE), reps=1, warm=0)
+    da, ca = single["A"]
+    d_diff = int(((torch.isnan(d1) != torch.isnan(da))
+                  | (torch.nan_to_num(d1) != torch.nan_to_num(da))).sum())
+    c_diff = int(((torch.isnan(c1) != torch.isnan(ca))
+                  | (torch.nan_to_num(c1) != torch.nan_to_num(ca))).sum())
+    res.update(variant=repr(cfg.variant), precision="DOUBLE", agree_ms=jms,
+               agree_plain_ms=jplain, disparities_differing_from_A=d_diff,
+               corrmap_differing_from_A=c_diff,
+               agree_bound_ms=agree_bound(torch, disp, s0, s1, nx,
+                                          double=True)[0])
+    results["J"] = res
+    print(f"call J (A in DOUBLE): {res['ms']:.3f} ms with the kernels, "
+          f"{res['plain_ms']:.1f} ms plain; f64 agree kernel {jms:.3f} ms, "
+          f"plain f64 agree {jplain:.1f} ms; {d_diff} disparities and "
+          f"{c_diff} corrmap values differ from call A ({card})", flush=True)
     print("phase 3: every call launched its path's kernels, ran "
           "deterministically, and each kernel agrees with its plain "
           "version at the call's shapes", flush=True)
@@ -650,7 +906,10 @@ def main() -> None:
                     for d, x, off in zip(col_disp, col_b0, offs)]),
             }
         res.update(variant=repr(cfg.variant), drange=drange,
-                   entry=fn.__name__, equals=ref, parts_ms=parts)
+                   entry=fn.__name__, equals=ref, parts_ms=parts,
+                   # F's two rings run the popcounts twice; the function
+                   # (forward and reverse minima) needs them once.
+                   scan_bound_ms=scan_bound(h, w, w0.shape[2], drange, 8)[0])
         results[label] = res
         print(f"call {label} ({fn.__name__}, {cfg.variant!r}, range "
               f"{drange}, {NBANDS} bands on one card): {res['ms']:.3f} ms "
@@ -675,9 +934,22 @@ def main() -> None:
             time_ms(torch, lambda: ta.agree_subpixel(
                 search_disp["A"], s0, s1, THRESHOLD, STEP, mv), reps=3)),
         "band": band_timing,  # the 16 ring steps of call E
+        "bases": (bases_ms, bases_plain_ms),  # call I's bases
+    }
+    # Each kernel's bound at the shapes it was timed at: one stack's
+    # transform; A's scan, B's fused scan and E's ring; A's agree; I's bases.
+    bounds = {
+        "transform": bound(s0.numel() * s0.element_size()
+                           + w0.numel() * 4),
+        "hamming": scan_bound(h, w, w0.shape[2], None, 8),
+        "consistency": scan_bound(h, w, w0.shape[2], None, 16),
+        "band": scan_bound(h, w, w0.shape[2], None, 8),
+        "agree": agree_bound(torch, search_disp["A"], s0, s1, nx),
+        "bases": bases_bound,
     }
     for k, (kms, pms) in timings.items():
-        print(f"  {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms ({card})",
+        print(f"  {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms, bound "
+              f"{bounds[k][0]:.4f} ms by {bounds[k][1]} ({card})",
               flush=True)
     print(json.dumps({"calls": results, "shape": list(HEADLINE),
                       "dtype": "uint8", "mode": "LIMITED",
@@ -688,7 +960,10 @@ def main() -> None:
          "replaces": SOURCES[k][1],
          "launches": sum(r["launches"][k] for r in results.values()),
          "max_abs_err": ERRS[k], "ms": timings[k][0],
-         "plain_ms": timings[k][1]}
+         "plain_ms": timings[k][1], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1],
+         # No single PyTorch call computes any of these functions.
+         "library_ms": None}
         for k in KERNELS
     ]
     print(card, flush=True)

@@ -7,8 +7,12 @@ names follow the JAX package, so each counterpart is found by name.
 Public surface::
 
     import libbicos_tpu_torch as bicos
-    disp = bicos.match(stack0, stack1, bicos.Config(...), device="cuda")
+    disp = bicos.match(stack0, stack1, bicos.Config(...))  # on the card
     disp, corr = bicos.match(stack0, stack1, cfg, corrmap=True)
+    disp = bicos.match(stack0, stack1, cfg, device="cpu")  # plain, on the CPU
+
+The entry points run on the current CUDA device unless ``device`` says
+otherwise; without a card they raise rather than fall back to the CPU.
 """
 
 from .config import (

@@ -36,11 +36,11 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"transform": 0, "hamming": 0, "consistency": 0, "agree": 0,
-            "band": 0}
+            "band": 0, "bases": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # every entry point takes the device index first, then:
     # stack, words, n, h, w, u16, full, nw, stream
@@ -56,9 +56,13 @@ _SIGNATURES = {
     "bicos_consistency": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
     # disp, s0, s1, xs, nx, out, corr, n, h, w, w1, col_offset, u16,
-    # threshold, minvar, has_minvar, stream
+    # threshold, minvar, has_minvar, f64, bases, nc, chunk, wcap, stream
     "bicos_agree": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                    _F, _F, _I, _P),
+                    _D, _D, _I, _I, _P, _I, _I, _I, _P),
+    # (the device only): the opt-in shared memory per block, or -error
+    "bicos_smem_optin": (_I,),
+    # disp, out, h, wd, w, wp, wcap, chunk, stream
+    "bicos_chunk_window_bases": (_I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # words0, words1, mf, ml, h, wid0, band, wid1, nw, off1, w1_total,
     # has_range, dmin, dmax, stream
     "bicos_row_minima_band": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

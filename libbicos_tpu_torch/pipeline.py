@@ -6,20 +6,28 @@ The counterpart of ``libbicos_tpu.pipeline``, eager PyTorch:
   with NaN invalid with it;
 * ``min_variance`` is scaled by the stack size before use (the reference
   quirk);
-* ``corrmap`` returns the NXCORR map too (needs a threshold).
+* ``corrmap`` returns the NXCORR map too (needs a threshold);
+* ``Precision.DOUBLE`` runs the agree stage's statistics, NXCORR and tests
+  in float64 (the parabola and the x grid stay float32), on both backends.
 
-``backend``: ``"torch"`` runs the plain versions on the tensors' device,
-``"cuda"`` the hand-written kernels, ``"auto"`` resolves to ``"cuda"`` when
-``device`` (or, without it, the input) is CUDA. ``device`` moves the
-inputs there first; ``"cuda"`` with CPU inputs and no ``device`` moves them
-to the current CUDA device, and raises where there is none.
+``device`` is where a call runs. ``None`` means the card: CUDA inputs stay
+on their device, CPU inputs move to the current CUDA device, and without a
+card the call raises (pass ``device="cpu"`` to run on the CPU). ``backend``:
+``"torch"`` runs the plain versions on that device, ``"cuda"`` the
+hand-written kernels (it raises for CPU tensors), ``"auto"`` resolves to
+``"cuda"`` on a card and to ``"torch"`` on the CPU.
 
-Both search variants (NoDuplicates, Consistency) and
-``cfg.disparity_range`` run on both backends. Not ported yet, and refused
-with ``NotImplementedError`` by both backends: DOUBLE precision.
+Both search variants (NoDuplicates, Consistency), ``cfg.disparity_range``
+and both precisions run on both backends. ``BICOS_AGREE_DYNWIN`` (read at
+call time, see :func:`kernels.agree.agree_window`) turns on the agree
+stage's dynamic window: per (row, chunk) bases computed from the
+disparity, which the agree kernel uses to stage right-series windows in
+shared memory. The results do not change.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,20 +37,32 @@ from . import search as _search
 from .config import Config, Precision, validate_stack
 
 
-def _as_tensor(x, backend: str, device) -> torch.Tensor:
+def resolve_device(device, like: Optional[torch.Tensor] = None
+                   ) -> torch.device:
+    """The device a call runs on. ``None``: the device of ``like`` if that
+    is a card, else the current CUDA device; without a card it raises and
+    never carries on on the CPU."""
+    if device is None:
+        if like is not None and like.device.type == "cuda":
+            return like.device
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the entry points run on the card by "
+                "default; pass device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was asked for but none is "
+                           "available")
+    return device
+
+
+def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     elif not isinstance(x, torch.Tensor):
         raise TypeError(f"expected a tensor or numpy array, got {type(x)}")
-    if device is None and backend == "cuda" and x.device.type != "cuda":
-        device = "cuda"
-    if device is not None:
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("a CUDA device was asked for but none is "
-                               "available")
-        x = x.to(device)
-    return x.contiguous()
+    return x.to(resolve_device(device, x)).contiguous()
 
 
 def _validate_inputs(stack0: torch.Tensor, stack1: torch.Tensor) -> None:
@@ -61,11 +81,6 @@ def _validate_inputs(stack0: torch.Tensor, stack1: torch.Tensor) -> None:
         raise ValueError("stacks lie on different devices")
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.precision != Precision.SINGLE:
-        raise NotImplementedError("DOUBLE precision is not ported yet")
-
-
 def _prepare(stack0, stack1, cfg: Config, corrmap: bool, backend: str,
              device):
     """The checks every matching surface makes, in ``match``'s order:
@@ -73,30 +88,58 @@ def _prepare(stack0, stack1, cfg: Config, corrmap: bool, backend: str,
     if backend not in _search.BACKENDS:
         raise ValueError(
             f"backend must be one of {_search.BACKENDS}, got {backend!r}")
-    stack0 = _as_tensor(stack0, backend, device)
-    stack1 = _as_tensor(stack1, backend, device)
+    stack0 = _as_tensor(stack0, device)
+    stack1 = _as_tensor(stack1, device)
     _validate_inputs(stack0, stack1)
     validate_stack(stack0.shape[0], cfg.mode)
     if corrmap and cfg.nxcorr_threshold is None:
         raise ValueError("corrmap requires cfg.nxcorr_threshold")
-    _check_ported(cfg)
     return stack0, stack1, _search.resolve_backend(backend, stack0, stack1)
 
 
+def _agree_window_params(stack0, cfg: Config):
+    """``(chunk, wcap, wp)`` when the agree stage runs the dynamic window,
+    else None: the counterpart of ``libbicos_tpu.pipeline
+    ._agree_bases_params`` (SINGLE, a threshold, a window that
+    ``resolve_chunk_wcap`` accepts at this width) without the TPU's gather
+    test."""
+    if cfg.nxcorr_threshold is None or cfg.precision != Precision.SINGLE:
+        return None
+    from .kernels.agree import agree_window
+
+    w = stack0.shape[2]
+    chunk, wcap = agree_window(w)
+    if not wcap:
+        return None
+    return chunk, wcap, w + ((-w) % chunk)
+
+
 def agree_stage(disp, stack0, stack1, cfg: Config, backend: str,
-                col_offset: int = 0):
+                col_offset: int = 0, window=None):
     """The agree stage: ``(disparity, corrmap)``, int16 without subpixel
     refinement, f32 with it. ``stack1`` may be wider than ``stack0`` and
     ``col_offset`` nonzero on the W-banded path (see
-    :func:`agree.agree_subpixel`)."""
+    :func:`agree.agree_subpixel`). ``window = (chunk, wcap, wp)`` runs the
+    kernel's dynamic window with bases computed here from ``disp``; the
+    plain backend reads any column and ignores it."""
     minvar = (None if cfg.min_variance is None
               else cfg.min_variance * stack0.shape[0])
     step = cfg.subpixel_step
     if backend == "cuda":
         from .kernels.agree import agree_cuda
 
+        chunk = wcap = 0
+        bases = None
+        if window is not None:
+            from .kernels.bases import chunk_window_bases_cuda
+
+            chunk, wcap, wp = window
+            bases = chunk_window_bases_cuda(disp, stack0.shape[2], wp, wcap,
+                                            chunk)
         out_f, corr = agree_cuda(disp, stack0, stack1, cfg.nxcorr_threshold,
-                                 step, minvar, col_offset)
+                                 step, minvar, col_offset, bases=bases,
+                                 chunk=chunk, wcap=wcap,
+                                 precision=cfg.precision)
         if step is not None:
             return out_f, corr
         return torch.where(
@@ -105,9 +148,9 @@ def agree_stage(disp, stack0, stack1, cfg: Config, backend: str,
     if step is not None:
         return _agree.agree_subpixel(disp, stack0, stack1,
                                      cfg.nxcorr_threshold, step, minvar,
-                                     col_offset)
+                                     col_offset, cfg.precision)
     return _agree.agree_integer(disp, stack0, stack1, cfg.nxcorr_threshold,
-                                minvar, col_offset)
+                                minvar, col_offset, cfg.precision)
 
 
 def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
@@ -121,7 +164,8 @@ def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
       corrmap: also return the NXCORR map (float32, NaN where not
         computed). Requires ``cfg.nxcorr_threshold``.
       backend: ``"auto"`` | ``"torch"`` | ``"cuda"``.
-      device: where to run; the inputs are moved there.
+      device: where to run (None: the card, see the module docstring);
+        the inputs are moved there.
 
     Returns:
       ``disparity`` on the run's device, or ``(disparity, corrmap)``.
@@ -138,7 +182,8 @@ def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
     # as the JAX XLA agree does.
     corr = None
     if cfg.nxcorr_threshold is not None:
-        disp, corr = agree_stage(disp, stack0, stack1, cfg, backend)
+        disp, corr = agree_stage(disp, stack0, stack1, cfg, backend,
+                                 window=_agree_window_params(stack0, cfg))
     if corrmap:
         return disp, corr
     return disp

@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .agree import chunk_window_bases
 from .config import (
     Consistency,
     NoDuplicates,
@@ -349,3 +350,26 @@ def search_stack(stack0: torch.Tensor, stack1: torch.Tensor,
                 stack0, stack1, mode=mode, no_dupes=variant.no_dupes,
                 drange=drange))
     return _finish_gathered(variant, first0, last0, rc0, rc0_last)
+
+
+def search_stack_nodupes_with_bases(stack0: torch.Tensor,
+                                    stack1: torch.Tensor,
+                                    mode: TransformMode, *, chunk: int,
+                                    wcap: int, wp: int,
+                                    backend: str = "auto"):
+    """NoDuplicates search that also returns the agree stage's
+    dynamic-window bases: ``(disparity, bases)``, ``bases`` the ``(H, wp //
+    chunk)`` int32 :func:`agree.chunk_window_bases` of the disparity. The
+    counterpart of ``libbicos_tpu.search.search_stack_nodupes_with_bases``:
+    the TPU emits them from the search kernel's epilogue, here the bases
+    kernel (``"cuda"``) or its plain version (``"torch"``) reads the
+    disparity after the search. ``match`` does not call it: its agree stage
+    computes the same bases from the disparity for every variant."""
+    backend = resolve_backend(backend, stack0, stack1)
+    disp = search_stack(stack0, stack1, mode, NoDuplicates(), backend)
+    w = stack0.shape[2]
+    if backend == "cuda":
+        from .kernels.bases import chunk_window_bases_cuda
+
+        return disp, chunk_window_bases_cuda(disp, w, wp, wcap, chunk)
+    return disp, chunk_window_bases(disp, w, wp, wcap, chunk)

@@ -23,6 +23,10 @@ A mesh (:func:`make_mesh`) is one of two transports behind one interface:
   how one card runs the sharded paths, as the JAX suite runs them on a
   virtual CPU mesh.
 
+A mesh's ``device`` is where its bands run. ``None`` (the default) means the
+current CUDA device, and raises without a card: pass ``device="cpu"`` for
+the CPU (gloo workers included).
+
 Every process passes the full stacks and gets the full ``(H, W)`` maps
 back, as the JAX surfaces take and return global arrays.
 """
@@ -41,8 +45,8 @@ from .search import BIG, PACK_K
 
 
 class LocalMesh:
-    """``size`` bands held by this process on ``device`` (None: where the
-    inputs lie); ``shift`` and ``all_gather`` move no data between
+    """``size`` bands held by this process on ``device`` (None: the current
+    CUDA device); ``shift`` and ``all_gather`` move no data between
     processes."""
 
     def __init__(self, size: int, device=None):
@@ -50,7 +54,7 @@ class LocalMesh:
             raise ValueError(f"a mesh needs at least one band, got {size}")
         self.size = size
         self.ranks = tuple(range(size))
-        self.device = device
+        self.device = _pipeline.resolve_device(device)
 
     def shift(self, payloads: List[torch.Tensor], k: int):
         """Band ``r`` receives band ``(r + k) % size``'s payload."""
@@ -63,8 +67,9 @@ class LocalMesh:
 
 
 class DistMesh:
-    """One band per process of the default ``torch.distributed`` group; this
-    process plays rank ``dist.get_rank()``."""
+    """One band per process of the default ``torch.distributed`` group, on
+    ``device`` (None: the current CUDA device); this process plays rank
+    ``dist.get_rank()``."""
 
     def __init__(self, device=None):
         import torch.distributed as dist
@@ -72,7 +77,7 @@ class DistMesh:
         self._dist = dist
         self.size = dist.get_world_size()
         self.ranks = (dist.get_rank(),)
-        self.device = device
+        self.device = _pipeline.resolve_device(device)
 
     def shift(self, payloads: List[torch.Tensor], k: int):
         """This rank receives rank ``(r + k) % size``'s payload and sends
@@ -109,7 +114,9 @@ def make_mesh(n_devices: Optional[int] = None, *, virtual: bool = False,
     ``virtual=True``: a :class:`LocalMesh` of ``n_devices`` bands on
     ``device``. Otherwise, with ``torch.distributed`` initialised, a
     :class:`DistMesh` over the default group (``n_devices`` defaults to, and
-    must equal, its world size); without it, only one band."""
+    must equal, its world size); without it, only one band. ``device=None``
+    is the current CUDA device (it raises without a card); pass ``"cpu"``
+    for the CPU."""
     if virtual:
         if n_devices is None:
             raise ValueError("a virtual mesh needs n_devices")
@@ -153,7 +160,8 @@ def match_sharded(stack0, stack1, cfg: Config = Config(), *, mesh=None,
     h = stack0.shape[1]
     outs = []
     for b0, b1 in zip(_bands(stack0, 1, mesh), _bands(stack1, 1, mesh)):
-        out = _pipeline.match(b0, b1, cfg, corrmap=corrmap, backend=backend)
+        out = _pipeline.match(b0, b1, cfg, corrmap=corrmap, backend=backend,
+                              device=b0.device)
         outs.append(out if corrmap else (out, None))
     disp = mesh.all_gather([d for d, _ in outs], 0)[:h]
     if corrmap:

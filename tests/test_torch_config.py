@@ -135,6 +135,7 @@ def test_import_leaves_jax_out():
         "import libbicos_tpu_torch, libbicos_tpu_torch.io\n"
         "import libbicos_tpu_torch.kernels.agree\n"
         "import libbicos_tpu_torch.kernels.band\n"
+        "import libbicos_tpu_torch.kernels.bases\n"
         "import libbicos_tpu_torch.kernels.consistency\n"
         "import libbicos_tpu_torch.kernels.hamming\n"
         "import libbicos_tpu_torch.kernels.transform\n"

@@ -14,6 +14,7 @@ from libbicos_tpu_torch import search as ts
 from libbicos_tpu_torch.io import synthetic_stack_pair
 from libbicos_tpu_torch.kernels import _build
 from libbicos_tpu_torch.kernels.agree import agree_cuda
+from libbicos_tpu_torch.kernels.bases import chunk_window_bases_cuda
 from libbicos_tpu_torch.kernels.consistency import (
     row_minima_consistency_words,
 )
@@ -93,7 +94,7 @@ def test_match_cuda_launches_every_kernel_and_matches_plain(dev):
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
     counts = _build.launch_counts()
     assert counts == {"transform": 2, "hamming": 1, "consistency": 0,
-                      "agree": 1, "band": 0}
+                      "agree": 1, "band": 0, "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
     v = ~torch.isnan(want_d)
@@ -209,16 +210,16 @@ def test_consistency_kernel_ultrawide(dev, drange):
 @pytest.mark.parametrize("variant, drange, expect", [
     (tb.Consistency(1, True), None,
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0}),
+      "band": 0, "bases": 0}),
     (tb.NoDuplicates(), (0, 63),
      {"transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-      "band": 0}),
+      "band": 0, "bases": 0}),
     (tb.Consistency(3, True), (0, 63),
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0}),
+      "band": 0, "bases": 0}),
     (tb.Consistency(2, False), (-10, 40),
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0}),
+      "band": 0, "bases": 0}),
 ])
 def test_match_cuda_variants_match_plain(dev, variant, drange, expect):
     s0, s1 = _pair(dev, 33, 16, 400)
@@ -345,7 +346,7 @@ def test_match_sharded_w_on_one_card_equals_match(dev, variant, drange,
                                             corrmap=True, backend="cuda")
     assert _build.launch_counts() == {
         "transform": 6, "hamming": 0, "consistency": 0, "agree": 3,
-        "band": band_launches}
+        "band": band_launches, "bases": 0}
     for got, want in ((got_d, want_d), (got_c, want_c)):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
@@ -363,3 +364,169 @@ def test_distmesh_nccl_four_cards_equal_localmesh(dev, tmp_path):
     from test_torch_dist import run_group
 
     run_group(tmp_path, 4, "nccl")
+
+
+# ---------------------------------------------------------------------------
+# The dynamic window (bases.cu, the windowed agree.cu) and DOUBLE.
+
+
+def _mixed_disp(dev, s0, s1, seed=3):
+    """The search disparity with planted far matches and invalid pixels, so
+    that some chunks take the window and some fall back."""
+    disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
+                           tb.NoDuplicates(), backend="torch").clone()
+    g = np.random.default_rng(seed)
+    w = disp.shape[1]
+    cols = torch.arange(0, w, 97, device=dev)
+    far = torch.from_numpy(g.integers(0, 2, cols.numel())).to(dev)
+    # Row 0: matches on the borders (col1 = 0 or w - 1) every 97 columns;
+    # row 1: matched columns 10..19 beside columns 1200..1209.
+    disp[0, cols] = (cols - far * (w - 1)).to(torch.int16)
+    disp[1, 1200:1210] = 1190
+    disp[torch.from_numpy(g.random(tuple(disp.shape)) < 0.05).to(dev)] = (
+        ta.INVALID_I16)
+    return disp.contiguous()
+
+
+@pytest.mark.parametrize("chunk, wcap", [(256, 640), (512, 1024)])
+@pytest.mark.parametrize("w", [1408, 1412])
+def test_bases_kernel_equal(dev, chunk, wcap, w):
+    s0, s1 = _pair(dev, 5, 8, w)
+    wp = -(-w // chunk) * chunk
+    for disp in (ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
+                                 tb.NoDuplicates(), backend="torch"),
+                 _mixed_disp(dev, s0, s1)):
+        got = chunk_window_bases_cuda(disp, w, wp, wcap, chunk)
+        want = ta.chunk_window_bases(disp, w, wp, wcap, chunk)
+        assert torch.equal(got, want)
+    assert bool((want >= 0).any()) and bool((want < 0).any())
+
+
+def _plain_agree(disp, s0, s1, thr, step, minvar, precision):
+    if step is None:
+        po, pc = ta.agree_integer(disp, s0, s1, thr, minvar,
+                                  precision=precision)
+        po = torch.where(po == ta.INVALID_I16,
+                         torch.tensor(float("nan"), device=po.device),
+                         po.float())
+        return po, pc
+    return ta.agree_subpixel(disp, s0, s1, thr, step, minvar,
+                             precision=precision)
+
+
+def _assert_bitwise(a, b):
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def _assert_plain_bar(out, corr, po, pc):
+    assert torch.equal(torch.isnan(corr), torch.isnan(pc))
+    m = ~torch.isnan(pc)
+    torch.testing.assert_close(corr[m], pc[m], rtol=4e-6, atol=4e-6)
+    assert torch.equal(torch.isnan(out), torch.isnan(po))
+    assert torch.equal(out[~torch.isnan(po)], po[~torch.isnan(po)])
+
+
+@pytest.mark.parametrize("step, minvar", [(0.1, 2.0), (0.25, None),
+                                          (None, 2.0), (None, None)])
+@pytest.mark.parametrize("n, dtype, chunk, wcap", [
+    (2, np.uint8, 256, 640), (33, np.uint8, 256, 640),
+    (33, np.uint16, 512, 1024), (65, np.uint16, 512, 1024),
+    (65, np.uint8, 256, 640),
+])
+def test_windowed_agree_equals_global(dev, n, dtype, chunk, wcap, step,
+                                      minvar):
+    """The windowed agree.cu equals the global-read agree.cu bit for bit,
+    corrmap included (the same arithmetic), and the plain agree to the
+    usual bar. n=65 u16 at wcap 1024 stages 133,380 bytes a block (the
+    opt-in shared memory)."""
+    w = 1412
+    s0, s1 = _pair(dev, n, 6, w, dtype)
+    disp = _mixed_disp(dev, s0, s1)
+    wp = -(-w // chunk) * chunk
+    bases = chunk_window_bases_cuda(disp, w, wp, wcap, chunk)
+    assert bool((bases >= 0).any()) and bool((bases < 0).any())
+    mv = None if minvar is None else minvar * n
+    _build.reset_launch_counts()
+    win = agree_cuda(disp, s0, s1, 0.5, step, mv, bases=bases, chunk=chunk,
+                     wcap=wcap)
+    glob = agree_cuda(disp, s0, s1, 0.5, step, mv)
+    assert _build.launch_counts()["agree"] == 2
+    for a, b in zip(win, glob):
+        _assert_bitwise(a, b)
+    _assert_plain_bar(*win, *_plain_agree(disp, s0, s1, 0.5, step, mv,
+                                          tb.Precision.SINGLE))
+
+
+def test_windowed_agree_rejects_bad_windows(dev):
+    s0, s1 = _pair(dev, 5, 2, 800)
+    disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
+                           tb.NoDuplicates(), backend="torch")
+    bases = chunk_window_bases_cuda(disp, 800, 1024, 640, 256)
+    with pytest.raises(ValueError, match="W1 == W"):
+        agree_cuda(disp, s0, s1, 0.5, None, None, 3, bases=bases, chunk=256,
+                   wcap=640)
+    with pytest.raises(ValueError, match="window"):
+        agree_cuda(disp, s0, s1, 0.5, None, None, bases=bases, chunk=256,
+                   wcap=300)
+    with pytest.raises(ValueError, match="bases"):
+        agree_cuda(disp, s0, s1, 0.5, None, None,
+                   bases=bases[:, :2].contiguous(), chunk=256, wcap=640)
+
+
+@pytest.mark.parametrize("step, minvar", [(0.1, 66.0), (0.25, None),
+                                          (None, 18.0), (None, None)])
+@pytest.mark.parametrize("n, dtype", [(33, np.uint8), (9, np.uint16),
+                                      (65, np.uint16), (2, np.uint8)])
+def test_double_agree_kernel_matches_plain(dev, n, dtype, step, minvar):
+    """The f64 agree kernel against the plain f64 agree; DOUBLE differs
+    from SINGLE in the corrmap somewhere."""
+    s0, s1 = _pair(dev, n, 6, 300, dtype)
+    disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
+                           tb.NoDuplicates(), backend="torch")
+    out, corr = agree_cuda(disp, s0, s1, 0.5, step, minvar,
+                           precision=tb.Precision.DOUBLE)
+    _assert_plain_bar(out, corr, *_plain_agree(
+        disp, s0, s1, 0.5, step, minvar, tb.Precision.DOUBLE))
+    if n == 33:
+        _, c32 = agree_cuda(disp, s0, s1, 0.5, step, minvar)
+        m = ~torch.isnan(corr)
+        assert bool((corr[m] != c32[m]).any())
+
+
+@pytest.mark.parametrize("variant, drange, scan", [
+    (tb.NoDuplicates(), None, "hamming"),
+    (tb.Consistency(1, True), None, "consistency"),
+    (tb.NoDuplicates(), (0, 63), "hamming"),
+])
+def test_match_cuda_dynwin_equals_window_off(dev, monkeypatch, variant,
+                                             drange, scan):
+    """``BICOS_AGREE_DYNWIN=640`` launches the bases kernel and the
+    windowed agree, and changes no bit of the result."""
+    s0, s1 = _pair(dev, 33, 16, 1400)
+    cfg = tb.Config(nxcorr_threshold=0.96, subpixel_step=0.1,
+                    min_variance=2.0, variant=variant,
+                    disparity_range=drange)
+    monkeypatch.delenv("BICOS_AGREE_DYNWIN", raising=False)
+    want = tb.match(s0, s1, cfg, corrmap=True)
+    monkeypatch.setenv("BICOS_AGREE_DYNWIN", "640")
+    _build.reset_launch_counts()
+    got = tb.match(s0, s1, cfg, corrmap=True)
+    assert _build.launch_counts() == {
+        "transform": 2, "hamming": 0, "consistency": 0, "agree": 1,
+        "band": 0, "bases": 1, scan: 1}
+    for a, b in zip(got, want):
+        _assert_bitwise(a, b)
+
+
+def test_match_cuda_double_launches_and_matches_plain(dev):
+    s0, s1 = _pair(dev, 33, 16, 400)
+    cfg = tb.Config(nxcorr_threshold=0.96, subpixel_step=0.1,
+                    min_variance=2.0, precision=tb.Precision.DOUBLE)
+    _build.reset_launch_counts()
+    got_d, got_c = tb.match(s0, s1, cfg, corrmap=True)
+    assert _build.launch_counts() == {
+        "transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
+        "band": 0, "bases": 0}
+    want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
+    _assert_plain_bar(got_d, got_c, want_d, want_c)

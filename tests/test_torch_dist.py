@@ -64,8 +64,8 @@ def run_cases(s0, s1, mesh) -> dict:
             out[f"{name}.disp"] = disp.cpu().numpy()
             out[f"{name}.corr"] = corr.cpu().numpy()
     mode = tb.TransformMode.LIMITED
-    w0, w1 = (descriptor_words(torch.from_numpy(s).to(mesh.device or "cpu"),
-                               mode) for s in (s0, s1))
+    w0, w1 = (descriptor_words(torch.from_numpy(s).to(mesh.device), mode)
+              for s in (s0, s1))
     for drange in (None, (0, 15)):
         cost, first, last = tsh.row_minima_wband(w0, w1, True, mesh=mesh,
                                                  drange=drange)
@@ -81,7 +81,7 @@ def _worker(rank: int, world: int, store: str, io: str,
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    device = None
+    device = torch.device("cpu")
     if backend == "nccl":
         device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
@@ -126,7 +126,7 @@ def test_dist_cases_are_not_trivial():
     """The stacks the workers match give valid and invalid pixels in every
     case (so equality below says something)."""
     s0, s1, _ = synthetic_stack_pair(5, 6, 42, seed=3)
-    res = run_cases(s0, s1, tsh.make_mesh(4, virtual=True))
+    res = run_cases(s0, s1, tsh.make_mesh(4, virtual=True, device="cpu"))
     for name, arr in res.items():
         if name.endswith(".disp"):
             invalid = np.isnan(arr) if arr.dtype.kind == "f" else arr == -32768
@@ -141,7 +141,7 @@ def run_group(tmp_path, world, backend="gloo"):
     s0, s1, _ = synthetic_stack_pair(5, 6, 42, seed=3)
     # The reference first: on a card it also builds the kernels once.
     want = run_cases(s0, s1, tsh.make_mesh(
-        world, virtual=True, device="cuda:0" if backend == "nccl" else None))
+        world, virtual=True, device="cuda:0" if backend == "nccl" else "cpu"))
     io = tmp_path / "io.npz"
     np.savez(io, s0=s0, s1=s1)
     env = dict(os.environ)

@@ -45,7 +45,7 @@ def _both(s0, s1, jcfg, jax_backend="xla", **kw):
     want_d, want_c = jb.match(s0, s1, jcfg, corrmap=True,
                               backend=jax_backend)
     got_d, got_c = tb.match(s0, s1, tb.config_from_reference(jcfg),
-                            corrmap=True, **kw)
+                            corrmap=True, device="cpu", **kw)
     assert got_d.device.type == "cpu"
     _assert_same(got_d.numpy(), want_d)
     _assert_corr_close(got_c.numpy(), want_c)
@@ -98,7 +98,7 @@ def test_match_matches_oracle(rng, cfg):
     s0, s1, _ = make_stack_pair(rng, 8, 3, 24)
     jcfg = jb.Config(**cfg)
     want, _ = _oracle.match(s0, s1, jcfg)
-    got = tb.match(s0, s1, tb.config_from_reference(jcfg))
+    got = tb.match(s0, s1, tb.config_from_reference(jcfg), device="cpu")
     _assert_same(got.numpy(), want)
 
 
@@ -107,7 +107,8 @@ def test_no_threshold_returns_search_disparity(rng):
     jcfg = jb.Config(nxcorr_threshold=None)
     want = jb.match(s0, s1, jcfg, backend="xla")
     got = tb.match(torch.from_numpy(s0), torch.from_numpy(s1),
-                   tb.config_from_reference(jcfg), backend="torch")
+                   tb.config_from_reference(jcfg), backend="torch",
+                   device="cpu")
     assert got.dtype == torch.int16
     _assert_same(got.numpy(), want)
 
@@ -120,15 +121,15 @@ def test_match_batched_matches_xla(rng):
     want_d, want_c = jb.match_batched(b0, b1, jcfg, corrmap=True,
                                       backend="xla")
     cfg = tb.config_from_reference(jcfg)
-    got_d, got_c = tb.match_batched(b0, b1, cfg, corrmap=True)
+    got_d, got_c = tb.match_batched(b0, b1, cfg, corrmap=True, device="cpu")
     assert got_d.shape == (3, 3, 28)
     _assert_same(got_d.numpy(), want_d)
     _assert_corr_close(got_c.numpy(), want_c)
     for i in range(3):
         _assert_same(got_d[i].numpy(),
-                     tb.match(b0[i], b1[i], cfg).numpy())
+                     tb.match(b0[i], b1[i], cfg, device="cpu").numpy())
     flat0, flat1, (b, h, w) = _fold_batch(b0, b1)
-    folded = tb.match_batched_folded(flat0, flat1, b, cfg)
+    folded = tb.match_batched_folded(flat0, flat1, b, cfg, device="cpu")
     _assert_same(folded.numpy(), got_d.numpy())
 
 
@@ -144,18 +145,20 @@ def test_batched_shape_errors(rng):
 
 def test_input_checks(rng):
     s0, s1, _ = make_stack_pair(rng, 4, 2, 8)
+    cpu = dict(device="cpu")
     with pytest.raises(ValueError, match="differ"):
-        tb.match(s0, s1[:, :1])
+        tb.match(s0, s1[:, :1], **cpu)
     with pytest.raises(ValueError, match="dtypes differ"):
-        tb.match(s0, s1.astype(np.uint16))
+        tb.match(s0, s1.astype(np.uint16), **cpu)
     with pytest.raises(ValueError, match="uint8 and uint16"):
-        tb.match(s0.astype(np.int32), s1.astype(np.int32))
+        tb.match(s0.astype(np.int32), s1.astype(np.int32), **cpu)
     with pytest.raises(ValueError, match="at least two"):
-        tb.match(s0[:1], s1[:1])
+        tb.match(s0[:1], s1[:1], **cpu)
     with pytest.raises(ValueError, match="corrmap requires"):
-        tb.match(s0, s1, tb.Config(nxcorr_threshold=None), corrmap=True)
+        tb.match(s0, s1, tb.Config(nxcorr_threshold=None), corrmap=True,
+                 **cpu)
     with pytest.raises(ValueError, match="backend"):
-        tb.match(s0, s1, backend="pallas")
+        tb.match(s0, s1, backend="pallas", **cpu)
 
 
 def test_cuda_backend_raises_without_a_card(rng):
@@ -168,15 +171,35 @@ def test_cuda_backend_raises_without_a_card(rng):
         tb.match(s0, s1, backend="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         tb.match(s0, s1, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tb.match(s0, s1, backend="cuda", device="cpu")
 
 
 @pytest.mark.parametrize("cfg", [
     tb.Config(precision=tb.Precision.DOUBLE),
 ])
 def test_unported_options_raise(rng, cfg):
+    """No option is left unported: DOUBLE, the last one refused, now runs
+    (its results are held to the JAX package in test_torch_double.py)."""
     s0, s1, _ = make_stack_pair(rng, 4, 2, 8)
-    with pytest.raises(NotImplementedError):
-        tb.match(s0, s1, cfg)
+    disp, corr = tb.match(s0, s1, cfg, corrmap=True, device="cpu")
+    assert disp.dtype == torch.int16 and corr.dtype == torch.float32
+
+
+@pytest.mark.parametrize("entry", ["match", "match_batched",
+                                   "match_batched_folded"])
+def test_entry_points_default_to_the_card(rng, entry):
+    """``device=None`` is the card: without one the entry points raise and
+    name ``device="cpu"``; with ``device="cpu"`` they run there."""
+    s0, s1, _ = make_stack_pair(rng, 4, 2, 8)
+    args = {"match": (s0, s1), "match_batched": (s0[None], s1[None]),
+            "match_batched_folded": (s0, s1, 1)}[entry]
+    fn = getattr(tb, entry)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(*args)
+    out = fn(*args, device="cpu")
+    assert out.device.type == "cpu" and out.dtype == torch.int16
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])

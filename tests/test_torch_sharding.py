@@ -46,7 +46,7 @@ def jmesh():
 
 @pytest.fixture
 def tmesh():
-    return tsh.make_mesh(NDEV, virtual=True)
+    return tsh.make_mesh(NDEV, virtual=True, device="cpu")
 
 
 def _i32(words) -> torch.Tensor:
@@ -283,7 +283,7 @@ def test_match_sharded_w_matches_jax_and_single(rng, jmesh, tmesh, cfg):
     _assert_same(got, js.match_sharded_w(s0, s1, cfg, mesh=jmesh,
                                          backend="xla"))
     _assert_same(got, tb.match(s0, s1, tb.config_from_reference(cfg),
-                               backend="torch").numpy())
+                               backend="torch", device="cpu").numpy())
 
 
 @pytest.mark.parametrize("cfg", [WCFGS[1], WCFGS[3], WCFGS[4], WCFGS[8]])
@@ -306,7 +306,8 @@ def test_match_sharded_w_u16_ranged_corrmap(rng, jmesh, tmesh):
     m = ~np.isnan(np.asarray(jc))
     np.testing.assert_allclose(gc.numpy()[m], np.asarray(jc)[m], rtol=4e-6,
                                atol=4e-6)
-    sd, sc = tb.match(s0, s1, tb.config_from_reference(cfg), corrmap=True)
+    sd, sc = tb.match(s0, s1, tb.config_from_reference(cfg), corrmap=True,
+                      device="cpu")
     _assert_same(gd.numpy(), sd.numpy())
     _assert_same(gc.numpy(), sc.numpy())  # the same arithmetic per pixel
 
@@ -317,8 +318,8 @@ def test_match_sharded_w_any_band_count(rng, ndev):
                     variant=tb.Consistency(1, True), disparity_range=(-3, 9))
     s0, s1, _ = make_stack_pair(rng, 5, 3, 23)
     _assert_same(tsh.match_sharded_w(
-        s0, s1, cfg, mesh=tsh.make_mesh(ndev, virtual=True)).numpy(),
-        tb.match(s0, s1, cfg).numpy())
+        s0, s1, cfg, mesh=tsh.make_mesh(ndev, virtual=True, device="cpu")
+    ).numpy(), tb.match(s0, s1, cfg, device="cpu").numpy())
 
 
 @pytest.mark.parametrize("cfg", [
@@ -384,16 +385,18 @@ def test_sharded_surfaces_validate_like_match(rng, tmesh):
                mesh=tmesh)
         with pytest.raises(ValueError, match="corrmap"):
             fn(s0, s1, none, mesh=tmesh, corrmap=True)
-        with pytest.raises(NotImplementedError, match="DOUBLE"):
-            fn(s0, s1, tb.Config(precision=tb.Precision.DOUBLE), mesh=tmesh)
         with pytest.raises(ValueError, match="backend"):
             fn(s0, s1, none, mesh=tmesh, backend="xla")
         with pytest.raises(RuntimeError, match="CUDA"):
-            fn(s0, s1, none, mesh=tmesh, backend="cuda")  # no card here
-    with pytest.raises(NotImplementedError, match="DOUBLE"):
-        tsh.match_batched_sharded(s0[None], s1[None],
-                                  tb.Config(precision=tb.Precision.DOUBLE),
-                                  mesh=tmesh)
+            fn(s0, s1, none, mesh=tmesh, backend="cuda")  # a CPU mesh
+        # DOUBLE is accepted, as by match, and equals match's DOUBLE.
+        double = tb.Config(precision=tb.Precision.DOUBLE, subpixel_step=0.25)
+        _assert_same(fn(s0, s1, double, mesh=tmesh).numpy(),
+                     tb.match(s0, s1, double, device="cpu").numpy())
+    double = tb.Config(precision=tb.Precision.DOUBLE)
+    _assert_same(tsh.match_batched_sharded(s0[None], s1[None], double,
+                                           mesh=tmesh)[0].numpy(),
+                 tb.match(s0, s1, double, device="cpu").numpy())
 
 
 @pytest.mark.parametrize("width", [ts.PACK_K, ts.PACK_K + 8])
@@ -412,12 +415,12 @@ def test_make_mesh_rules():
     import torch.distributed as dist
 
     assert not dist.is_initialized()
-    assert tsh.make_mesh().size == 1
-    assert tsh.make_mesh(1).ranks == (0,)
+    assert tsh.make_mesh(device="cpu").size == 1
+    assert tsh.make_mesh(1, device="cpu").ranks == (0,)
     with pytest.raises(ValueError, match="virtual=True"):
-        tsh.make_mesh(2)
+        tsh.make_mesh(2, device="cpu")
     with pytest.raises(ValueError, match="n_devices"):
-        tsh.make_mesh(virtual=True)
+        tsh.make_mesh(virtual=True, device="cpu")
     mesh = tsh.make_mesh(3, virtual=True, device="cpu")
     assert mesh.size == 3 and mesh.ranks == (0, 1, 2)
     bands = [torch.tensor([r]) for r in range(3)]
@@ -426,6 +429,30 @@ def test_make_mesh_rules():
     assert [int(t) for t in mesh.shift(bands, 1)] == [1, 2, 0]
     assert [int(t) for t in mesh.shift(bands, 5)] == [2, 0, 1]
     assert mesh.all_gather(bands, 0).tolist() == [0, 1, 2]
+
+
+def test_sharded_entry_points_default_to_the_card(rng):
+    """A mesh's ``device=None`` is the card: without one ``make_mesh`` and
+    the sharded entry points (whose default mesh is ``make_mesh()``) raise
+    and name ``device="cpu"``; on a CPU mesh they run on the CPU."""
+    s0, s1, _ = make_stack_pair(rng, 4, 4, 24)
+    cfg = tb.Config(nxcorr_threshold=0.5)
+    if not torch.cuda.is_available():
+        for make in (lambda: tsh.make_mesh(4, virtual=True),
+                     lambda: tsh.make_mesh(), lambda: tsh.LocalMesh(2)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+        for fn in (tsh.match_sharded, tsh.match_sharded_w):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                fn(s0, s1, cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tsh.match_batched_sharded(s0[None], s1[None], cfg)
+    mesh = tsh.make_mesh(2, virtual=True, device="cpu")
+    assert mesh.device == torch.device("cpu")
+    want = tb.match(s0, s1, cfg, device="cpu")
+    for fn in (tsh.match_sharded, tsh.match_sharded_w):
+        got = fn(s0, s1, cfg, mesh=mesh)
+        assert got.device.type == "cpu" and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

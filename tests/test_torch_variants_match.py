@@ -43,7 +43,7 @@ def _match_both(s0, s1, jcfg, jax_backend):
     want_d, want_c = jb.match(s0, s1, jcfg, corrmap=True,
                               backend=jax_backend)
     got_d, got_c = tb.match(s0, s1, tb.config_from_reference(jcfg),
-                            corrmap=True)
+                            corrmap=True, device="cpu")
     _assert_same(got_d.numpy(), want_d)
     _assert_corr_close(got_c.numpy(), want_c)
     return got_d.numpy()
@@ -80,7 +80,7 @@ def test_consistency_match_matches_oracle(rng, cfg):
     s0, s1, _ = make_stack_pair(rng, 8, 3, 24)
     jcfg = jb.Config(**cfg)
     want, _ = _oracle.match(s0, s1, jcfg)
-    got = tb.match(s0, s1, tb.config_from_reference(jcfg))
+    got = tb.match(s0, s1, tb.config_from_reference(jcfg), device="cpu")
     _assert_same(got.numpy(), want)
 
 
@@ -126,12 +126,12 @@ def test_match_batched_matches_xla(rng, drange, variant):
     want_d, want_c = jb.match_batched(b0, b1, jcfg, corrmap=True,
                                       backend="xla")
     cfg = tb.config_from_reference(jcfg)
-    got_d, got_c = tb.match_batched(b0, b1, cfg, corrmap=True)
+    got_d, got_c = tb.match_batched(b0, b1, cfg, corrmap=True, device="cpu")
     _assert_same(got_d.numpy(), want_d)
     _assert_corr_close(got_c.numpy(), want_c)
     folded = tb.match_batched_folded(
         np.concatenate(list(b0), axis=1), np.concatenate(list(b1), axis=1),
-        2, cfg)
+        2, cfg, device="cpu")
     _assert_same(folded.numpy(), got_d.numpy())
 
 
