@@ -4,7 +4,11 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, power limit), the torch and CUDA versions, and
-   builds the CUDA kernels from ``libbicos_tpu_torch/csrc``.
+   builds the CUDA kernels from ``libbicos_tpu_torch/csrc``; prints each
+   kernel's registers, stack and spills (``-Xptxas -v``; an agree or
+   transform kernel that spills fails the run) and the agree and transform
+   kernels' SASS opcode counts, whole and per sweep loop
+   (``cuobjdump -sass``).
 2. Compares each kernel with its plain PyTorch version on the card, at a
    full-width row band of the headline input (n=33, 64 x 3300, u8, LIMITED)
    and at a ragged small shape (n=9, 7 x 1001, u16, FULL): the scan
@@ -66,6 +70,7 @@ its operations over the rate of their type (see ``PEAK``).
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -168,15 +173,18 @@ def scan_bound(h, w, nw, drange, out_bytes):
                  popc=h * pairs * nw)
 
 
-def agree_bound(torch, disp, s0, s1, nx, double=False):
+def agree_bound(torch, disp, s0, s1, nx, double=False, conv_pipe=False):
     """The agree function's bound on this input. A kept pixel that sweeps
     needs, per shot and x, 5 FP32 operations for the interpolated sample,
     4 in the compute type for its NXCORR terms (mean add, difference, two
-    fmas) and 2 conversions (the round-to-int and back); once per shot, 6
-    FP32 operations (the parabola), 3 in the compute type (left statistics)
-    and 4 conversions. A kept pixel on the integer check needs 7n
-    operations in the compute type and 2n conversions. The compute type is
-    FP32, or FP64 with ``double``."""
+    fmas) and 2 roundings or casts (the round-to-int and back); once per
+    shot, 6 FP32 operations (the parabola), 3 in the compute type (left
+    statistics) and 4 casts. A kept pixel on the integer check needs 7n
+    operations in the compute type and 2n casts. The compute type is FP32,
+    or FP64 with ``double``. The roundings and casts are exact FP32 adds
+    (as ``agree.cu`` computes them); ``conv_pipe`` counts them at the
+    conversion pipe's rate instead, the yardstick of the kernel's first
+    design."""
     n = s0.shape[0]
     w1 = s1.shape[2]
     col1 = torch.arange(disp.shape[1], device=disp.device)[None] - disp.long()
@@ -188,9 +196,129 @@ def agree_bound(torch, disp, s0, s1, nx, double=False):
     conv = sweep * (2 * n * nx + 4 * n) + plain * 2 * n
     nbytes = ((s0.numel() + s1.numel()) * s0.element_size()
               + disp.numel() * (2 + 4 + 4))
+    if not conv_pipe:
+        fp32, conv = fp32 + conv, 0
     if double:
         return bound(nbytes, fp32=fp32, fp64=comp, conv=conv)
     return bound(nbytes, fp32=fp32 + comp, conv=conv)
+
+
+_KERNEL_NAME = re.compile(
+    r"(agree_window_kernel|agree_kernel|transform_kernel)I([a-z]+)E")
+_TYPE_LETTERS = {"f": "float", "d": "double", "h": "u8", "t": "u16"}
+
+
+def short_name(mangled: str) -> str:
+    """``agree_kernel<float,u8>`` for an agree or transform kernel's
+    mangled name, else the mangled name."""
+    m = _KERNEL_NAME.search(mangled)
+    if not m:
+        return mangled
+    return f"{m[1]}<{','.join(_TYPE_LETTERS.get(c, c) for c in m[2])}>"
+
+
+def ptxas_report(log: str) -> dict:
+    """Per entry function of the nvcc ``-Xptxas -v`` log: registers,
+    stack frame, spill stores and loads (bytes)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = short_name(m[1])
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m[1]), spill_stores=int(m[2]),
+                            spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m[1])
+    return out
+
+
+SASS_OPS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F", "FMUL", "FADD",
+            "FFMA", "DMUL", "DADD", "DFMA", "LOP3", "IADD3", "LDS", "MUFU")
+
+
+def sass_report(lib: Path) -> dict:
+    """Opcode counts (``SASS_OPS``) of the agree and transform kernels in
+    the built library, from ``cuobjdump -sass``: over the whole kernel, and
+    over each loop (the span of a backward branch) that holds at least 20
+    FMULs (the sweep's two shot loops of an x tile, and the x loop around
+    them) or, in the transform, at least 16 instructions.
+    ``{}`` where the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = short_name(m[1])
+            cur = funcs.setdefault(name, []) if name != m[1] else None
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)(?:\.\S+)?\s*([^;]*);", line)
+        if cur is not None and m:
+            tgt = re.search(r"0x([0-9a-f]+)", m[3]) if m[2] == "BRA" else None
+            cur.append((int(m[1], 16), m[2], int(tgt[1], 16) if tgt else None))
+
+    def counts(ins):
+        return {op: sum(1 for _, o, _ in ins if o == op) for op in SASS_OPS}
+
+    report = {}
+    for name, ins in funcs.items():
+        loops = []
+        for addr, _, tgt in ins:
+            if tgt is None or tgt >= addr:
+                continue
+            body = [x for x in ins if tgt <= x[0] <= addr]
+            c = counts(body)
+            if c["FMUL"] >= 20 or (name.startswith("transform")
+                                   and len(body) >= 16):
+                loops.append({"span": f"{tgt:#06x}-{addr:#06x}",
+                              "instructions": len(body), **c})
+        report[name] = {"instructions": len(ins), **counts(ins),
+                        "loops": loops}
+    return report
+
+
+def build_report(lib: Path) -> None:
+    """Prints the agree and transform kernels' registers and spills (the
+    ``-Xptxas -v`` log beside ``lib``) and their SASS opcode counts; fails
+    if one of them spills."""
+    log = lib.with_suffix(".log")
+    ptxas = ptxas_report(log.read_text()) if log.exists() else {}
+    mine = {k: v for k, v in ptxas.items()
+            if k.startswith(("agree", "transform"))}
+    for k, v in mine.items():
+        print(f"  ptxas: {k}: {v}", flush=True)
+    others = {v.get("registers") for k, v in ptxas.items() if k not in mine}
+    print(f"  ptxas: {len(ptxas) - len(mine)} other kernels, registers "
+          f"{sorted(others)}", flush=True)
+    spills = [k for k, v in mine.items()
+              if v.get("spill_stores") or v.get("spill_loads")]
+    if spills:
+        fail(f"these kernels spill registers: {spills}")
+    sass = sass_report(lib)
+    for k, v in sass.items():
+        print(f"  sass: {k}: " + " ".join(
+            f"{op} {v[op]}" for op in ("instructions",) + SASS_OPS),
+              flush=True)
+        for loop in v["loops"]:
+            print(f"    loop {loop['span']}: " + " ".join(
+                f"{op} {loop[op]}" for op in ("instructions",) + SASS_OPS),
+                  flush=True)
+    if not sass:
+        print("  sass: cuobjdump not found, no opcode counts", flush=True)
 
 
 def same_bits(torch, a, b) -> bool:
@@ -630,11 +758,7 @@ def main() -> None:
     print(f"kernel library: {_build.library_path().name}, "
           f"{'built' if fresh else 'found'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    log = _build.library_path().with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "Compiling entry" in line or "registers" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+    build_report(_build.library_path())
     dev = torch.device("cuda", 0)
 
     # Phase 2: each kernel against its plain version.
@@ -736,13 +860,18 @@ def main() -> None:
                    scan_bound_ms=scan_bound(
                        h, w, w0.shape[2], drange,
                        8 if kname == "hamming" else 16)[0],
-                   agree_bound_ms=agree_bound(torch, disp, s0, s1, nx)[0])
+                   agree_bound_ms=agree_bound(torch, disp, s0, s1, nx)[0],
+                   agree_bound_conv_pipe_ms=agree_bound(
+                       torch, disp, s0, s1, nx, conv_pipe=True)[0])
         results[label] = res
         search_disp[label] = disp
         print(f"call {label} ({variant!r}, range {drange}): "
               f"{res['ms']:.3f} ms with the kernels, {res['plain_ms']:.1f} "
               f"ms plain; {kname} kernel {kms:.3f} ms, plain "
-              f"{plain_ms:.1f} ms; agree kernel {ams:.3f} ms; peak device "
+              f"{plain_ms:.1f} ms; agree kernel {ams:.3f} ms (bound "
+              f"{res['agree_bound_ms']:.3f} ms, "
+              f"{res['agree_bound_conv_pipe_ms']:.3f} ms with the roundings "
+              f"and casts on the conversion pipe); peak device "
               f"memory {res['peak_bytes']} bytes, "
               f"{res['call_peak_bytes']} above what was held before the "
               f"call ({card})", flush=True)
@@ -947,6 +1076,10 @@ def main() -> None:
         "agree": agree_bound(torch, search_disp["A"], s0, s1, nx),
         "bases": bases_bound,
     }
+    # Agree's bound with its roundings and casts on the conversion pipe: the
+    # yardstick of the kernel's first design, kept to compare with it.
+    conv_pipe_ms = agree_bound(torch, search_disp["A"], s0, s1, nx,
+                               conv_pipe=True)[0]
     for k, (kms, pms) in timings.items():
         print(f"  {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms, bound "
               f"{bounds[k][0]:.4f} ms by {bounds[k][1]} ({card})",
@@ -963,7 +1096,8 @@ def main() -> None:
          "plain_ms": timings[k][1], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1],
          # No single PyTorch call computes any of these functions.
-         "library_ms": None}
+         "library_ms": None,
+         **({"bound_conv_pipe_ms": conv_pipe_ms} if k == "agree" else {})}
         for k in KERNELS
     ]
     print(card, flush=True)

@@ -19,41 +19,66 @@
 //
 // Two variants share every line of arithmetic (agree_pixel), and differ
 // only in where the right series come from:
-// * agree_kernel: one thread per pixel, right series read from global
+// * agree_kernel: two threads per pixel, right series read from global
 //   memory (through L1/L2);
 // * agree_window_kernel: the dynamic window (the TPU kernel's DYNWIN, fed by
 //   the bases of bases.cu). One block per (row, chunk of left columns)
 //   stages the right-series columns [base - 1, base + wcap] of all n shots,
-//   clipped to [0, w1), in shared memory, and each thread sweeps from
-//   there. A chunk whose base is -1 (its matched columns do not fit one
-//   window) reads global memory, as the TPU kernel's in-kernel fallback.
+//   clipped to [0, w1), in shared memory (plain element copies), and its
+//   thread pairs loop over the chunk's pixels, reading from there. A chunk
+//   whose base is -1 (its matched columns do not fit one window) reads
+//   global memory, as the TPU kernel's in-kernel fallback. Now that a pixel
+//   reads its right series once, the window buys nothing on Hopper: it is
+//   kept for the JAX API's parity, not for speed.
 // Each variant is instantiated for float (SINGLE) and double (DOUBLE): the
 // statistics, NXCORR, minvar and threshold tests run in the compute type C;
 // the parabola, the x grid, the rounding and the modular cast stay float, as
 // the JAX XLA path computes DOUBLE.
 //
-// Bound on the card: issue rate of the sweep. A kept pixel evaluates
-// (1 + len(xs)) NXCORRs of n samples (n=33, step 0.1: 21 x 33 x 2 passes);
-// its conversions (rint, float<->int for the modular cast) run on the
-// 16/clk/SM conversion pipe. The global variant re-reads its three right
-// series and its left series from the cache on every pass instead of
-// holding 4n floats in registers (which spills at n=33); the window
-// variant re-reads them from shared memory.
+// Design. What bounds the sweep is instruction issue: a kept pixel
+// evaluates 2 x len(xs) x n interpolated samples (n=33, step 0.1: 1320),
+// and every other per-pixel term is computed once:
+// * two threads (lanes 2k, 2k+1) take one pixel. Once per pixel, each
+//   shot's parabola coefficients pa, pb, y1 and the left deviation
+//   d0 = left - m0 go to the pixel's slice of shared memory (Slice: 16 B a
+//   shot in SINGLE, 24 in DOUBLE; shot-major across the block's pixels, so
+//   a warp's reads are contiguous), each thread loading and converting
+//   half of the shots; both threads read the slice back for every x;
+// * the sweep takes kXT x values at a time (one tile; the pair's threads
+//   take alternate tiles, one each at step 0.1): the mean pass sums the
+//   tile's samples in integers (exact, < 2^23), the covariance pass
+//   recomputes each sample from the cached coefficients (cheaper than
+//   storing it), and the kXT independent fma chains fill the FP32 pipe.
+//   The pair then keeps the larger NXCORR, the smaller x on a tie;
+// * rounding and casts never touch the 16/clk conversion pipe: every sweep
+//   value lies within +-2^18, so v + 1.5*2^23 rounds v half to even into
+//   the low mantissa bits (whose low 16 bits are rint(v) mod 2^16, so the
+//   modular cast is one AND), and an int u < 2^23 converts exactly as
+//   (2^23 | u) - 2^23 in float or (2^52 | u) - 2^52 in double. The sweep
+//   loop holds no I2F, F2I or FRND. A sample costs 8 instructions in the
+//   mean pass and 11 in the covariance pass (FP32 pipe: 6 and 10).
+// The kernel is latency-bound below about 16 warps an SM, so the pixel's
+// slice is shared by its two threads: SINGLE n=33 takes 528 B a pixel,
+// 24 warps an SM in the global variant.
 //
 // Numerics follow the reference's CUDA backend and the TPU kernel:
 // * sums run serially in shot order; the covariance and variance chains are
-//   fmas (__fmaf_rn / __fma_rn), and nothing else is contracted: the file is
-//   compiled with -fmad=false, because a contracted parabola moves values
-//   across a rintf boundary and changes disparities;
+//   fmas (__fmaf_rn / __fma_rn), and nothing else is contracted: every
+//   operation is written as an _rn intrinsic and the file is compiled with
+//   -fmad=false, because a contracted parabola moves values across a
+//   rounding boundary and changes disparities;
 // * the mean divides by n and the norm uses an IEEE sqrt, both exact (no
 //   reciprocal, no rsqrt, no fast math);
-// * the interpolated sample is ((pa*x)*x + pb*x) + y1, rounded half to even
-//   (rintf), cast to int and masked to the input width (modular);
+// * the interpolated sample is ((pa*x)*x + pb*x) + y1, rounded half to even,
+//   cast to int and masked to the input width (modular);
 // * a variance below minvar gives -1; a NaN NXCORR keeps the pixel;
 // * the x grid comes from the host, f32-accumulated like the reference;
-//   only a strictly better NXCORR moves the best x; border columns fall
-//   back to the integer check.
+//   only a strictly better NXCORR moves the best x (the first x wins a
+//   tie, NaN never wins, and with no winner corr = -1 and x = 0); border
+//   columns and the integer variant take the check at col1 (the sweep's
+//   arithmetic at x = 0 with pa = pb = 0, which gives y1 exactly).
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -61,6 +86,9 @@
 namespace {
 
 constexpr int kInvalid = -32768;
+constexpr int kThreads = 64;         // a block of the global variant
+constexpr int kWindowThreads = 128;  // a block of the window variant
+constexpr int kXT = 10;              // x values swept together (one tile)
 
 template <typename T>
 struct Params {
@@ -74,189 +102,364 @@ struct Params {
   int64_t hw, hw1;  // shot strides of the left and the right stack
   int nx, n, w, w1, col_offset, mod, has_minvar;
   int nc, chunk, wcap;
+  int win_bytes;  // the staged window, padded to 16 B; window variant only
   double threshold, minvar;  // rounded to the compute type in the kernel
 };
 
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
 __device__ __forceinline__ float fma_rn(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
 }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) {
   return __fma_rn(a, b, c);
 }
-__device__ __forceinline__ float sqrt_rn(float v) { return sqrtf(v); }
-__device__ __forceinline__ double sqrt_rn(double v) { return sqrt(v); }
+__device__ __forceinline__ float sqrt_rn(float v) { return __fsqrt_rn(v); }
+__device__ __forceinline__ double sqrt_rn(double v) { return __dsqrt_rn(v); }
 
-// NXCORR of the left series (mean m0, variance var0) against `series`.
-template <typename C, typename T, typename Series>
-__device__ C nxcorr(const Params<T>& p, const T* left, C m0, C var0,
-                    Series series) {
-  const C fn = static_cast<C>(p.n);
-  C m1 = 0;
-  for (int t = 0; t < p.n; ++t) m1 = m1 + series(t);
-  m1 = m1 / fn;
-  C covar = 0, var1 = 0;
-  for (int t = 0; t < p.n; ++t) {
-    const C d0 = static_cast<C>(left[t * p.hw]) - m0;
-    const C d1 = series(t) - m1;
-    covar = fma_rn(d0, d1, covar);
-    var1 = fma_rn(d1, d1, var1);
-  }
-  C nxc = covar / sqrt_rn(var0 * var1);
-  const C minvar = static_cast<C>(p.minvar);
-  if (p.has_minvar && (var0 < minvar || var1 < minvar)) nxc = -1;
-  return nxc;
+// The int 0 <= u < 2^23 as C, exactly, on the FP pipe: the exponent of 2^23
+// (2^52) over u's bits, minus 2^23 (2^52).
+template <typename C>
+__device__ __forceinline__ C from_int(int u);
+template <>
+__device__ __forceinline__ float from_int<float>(int u) {
+  return __fsub_rn(__int_as_float(0x4B000000 | u), 0x1p23f);
+}
+template <>
+__device__ __forceinline__ double from_int<double>(int u) {
+  return __dsub_rn(__hiloint2double(0x43300000, u), 0x1p52);
 }
 
-// Right series of the global variant: y(t, k) is shot t at col1 + k.
+// The interpolated sample ((pa*x)*x + pb*x) + y1, rounded half to even and
+// cast to int modulo the input width (mod = 0xFF or 0xFFFF): |v| < 2^18, so
+// v + 1.5*2^23 lies in [2^23, 2^24), where the float's ulp is 1; its bits
+// are 0x4B400000 + rint(v), and their low 16 bits are rint(v) mod 2^16.
+__device__ __forceinline__ int sample(float pa, float pb, float y1, float x,
+                                      int mod) {
+  const float v = __fadd_rn(
+      __fadd_rn(__fmul_rn(__fmul_rn(pa, x), x), __fmul_rn(pb, x)), y1);
+  return __float_as_int(__fadd_rn(v, 0x1.8p23f)) & mod;
+}
+
+// One pixel's per-shot terms in shared memory, shot t of the block's pixel
+// k at t * stride + k: (pa, pb, y1, d0) as float4 in SINGLE; DOUBLE keeps
+// d0 in a plane of doubles after the n float4 rows.
+template <typename C>
+struct Slice;
+
+template <>
+struct Slice<float> {
+  static constexpr int kBytes = 16;  // a shot
+  float4* coef;
+  int stride;
+  __device__ Slice(unsigned char* base, int k, int pixels, int)
+      : coef(reinterpret_cast<float4*>(base) + k), stride(pixels) {}
+  __device__ void put(int t, float pa, float pb, float y1, float d0) const {
+    coef[t * stride] = make_float4(pa, pb, y1, d0);
+  }
+  __device__ float4 at(int t) const { return coef[t * stride]; }
+  __device__ float d0(int t, const float4& c) const { return c.w; }
+  __device__ void set_d0(int t, float v) const { coef[t * stride].w = v; }
+};
+
+template <>
+struct Slice<double> {
+  static constexpr int kBytes = 24;
+  float4* coef;
+  double* dev;
+  int stride;
+  __device__ Slice(unsigned char* base, int k, int pixels, int n)
+      : coef(reinterpret_cast<float4*>(base) + k),
+        dev(reinterpret_cast<double*>(reinterpret_cast<float4*>(base) +
+                                      n * pixels) + k),
+        stride(pixels) {}
+  __device__ void put(int t, float pa, float pb, float y1, double d0) const {
+    coef[t * stride] = make_float4(pa, pb, y1, 0.f);
+    dev[t * stride] = d0;
+  }
+  __device__ float4 at(int t) const { return coef[t * stride]; }
+  __device__ double d0(int t, const float4&) const { return dev[t * stride]; }
+  __device__ void set_d0(int t, double v) const { dev[t * stride] = v; }
+};
+
+// The NXCORRs of the cached left series (variance var0) against the K
+// interpolated right series at xv[0..K): a mean pass (integer sums) and a
+// covariance pass, each over the shots in order.
+template <int K, typename C>
+__device__ __forceinline__ void nxcorr_tile(const Slice<C>& sl, int n,
+                                            int mod, C fn, C var0, C minvar,
+                                            bool has_minvar, const float* xv,
+                                            C* nxc) {
+  int sum[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) sum[j] = 0;
+#pragma unroll 2
+  for (int t = 0; t < n; ++t) {
+    const float4 c = sl.at(t);
+#pragma unroll
+    for (int j = 0; j < K; ++j) sum[j] += sample(c.x, c.y, c.z, xv[j], mod);
+  }
+  C m1[K], covar[K], var1[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    m1[j] = div_rn(from_int<C>(sum[j]), fn);
+    covar[j] = 0;
+    var1[j] = 0;
+  }
+#pragma unroll 2
+  for (int t = 0; t < n; ++t) {
+    const float4 c = sl.at(t);
+    const C d0 = sl.d0(t, c);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const C d1 = sub_rn(from_int<C>(sample(c.x, c.y, c.z, xv[j], mod)),
+                          m1[j]);
+      covar[j] = fma_rn(d0, d1, covar[j]);
+      var1[j] = fma_rn(d1, d1, var1[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    C v = div_rn(covar[j], sqrt_rn(mul_rn(var0, var1[j])));
+    if (has_minvar && (var0 < minvar || var1[j] < minvar)) v = -1;
+    nxc[j] = v;
+  }
+}
+
+// A pixel's right series: y(t, k) is shot t at col1 + k, from global memory
+// (stride h * w1) or from the window in shared memory (stride wcap + 2).
 template <typename T>
-struct GlobalSeries {
-  const T* y;  // shot 0 of the pixel's row at col1
+struct Series {
+  const T* y;  // shot 0 at col1
   int64_t stride;
-  __device__ __forceinline__ T operator()(int t, int k) const {
+  __device__ __forceinline__ int operator()(int t, int k) const {
     return y[t * stride + k];
   }
 };
 
-// Right series of the window variant: the staged columns [base - 1,
-// base + wcap] of each shot, ws = wcap + 2 apart.
-template <typename T>
-struct WindowSeries {
-  const T* y;  // the window of shot 0 at col1
-  int ws;
-  __device__ __forceinline__ T operator()(int t, int k) const {
-    return y[t * ws + k];
-  }
+// The two threads of a pixel: lanes 2k and 2k+1 of a warp.
+struct Pair {
+  int q;          // 0 or 1
+  unsigned mask;  // the pair's lanes
+  __device__ Pair()
+      : q(threadIdx.x & 1), mask(3u << (threadIdx.x & 30)) {}
 };
 
 // One kept pixel (flat index i, disparity d, matched column col1 in
-// [0, w1)): writes its corrmap value and its disparity.
+// [0, w1)), on the two threads of `pr`: caches its shot terms in `sl`
+// (each thread half of the shots), sweeps the x tiles q, q + 2, ... on
+// thread q, and writes its corrmap value and its disparity (thread 0).
 template <typename C, typename T, typename Y>
-__device__ __forceinline__ void agree_pixel(const Params<T>& p, int64_t i,
-                                            int d, int col1, Y y) {
-  const bool border = col1 == 0 || col1 == p.w1 - 1;
+__device__ __forceinline__ void agree_pixel(const Params<T>& p,
+                                            const Slice<C>& sl, Pair pr,
+                                            int64_t i, int d, int col1, Y y) {
+  const bool sweep = p.nx != 0 && col1 != 0 && col1 != p.w1 - 1;
   const T* left = p.s0 + i;
-  const C fn = static_cast<C>(p.n);
-  C m0 = 0;
-  for (int t = 0; t < p.n; ++t) m0 = m0 + static_cast<C>(left[t * p.hw]);
-  m0 = m0 / fn;
+  const C fn = from_int<C>(p.n);
+  // The shot terms, once; the left sample waits in d0's place for m0. (In
+  // the window variant the partner may still read the pair's last pixel.)
+  __syncwarp(pr.mask);
+  int lsum = 0;
+  for (int t = pr.q; t < p.n; t += 2) {
+    const int l = left[t * p.hw];
+    lsum += l;
+    const float y1 = from_int<float>(y(t, 0));
+    float pa = 0.f, pb = 0.f;
+    if (sweep) {
+      const float y0 = from_int<float>(y(t, -1));
+      const float y2 = from_int<float>(y(t, 1));
+      pa = __fmul_rn(0.5f, __fadd_rn(__fsub_rn(y0, __fmul_rn(2.0f, y1)), y2));
+      pb = __fmul_rn(0.5f, __fsub_rn(y2, y0));
+    }
+    sl.put(t, pa, pb, y1, from_int<C>(l));
+  }
+  lsum += __shfl_xor_sync(pr.mask, lsum, 1);  // exact integers
+  __syncwarp(pr.mask);
+  const C m0 = div_rn(from_int<C>(lsum), fn);
   C var0 = 0;
   for (int t = 0; t < p.n; ++t) {
-    const C d0 = static_cast<C>(left[t * p.hw]) - m0;
+    const C d0 = sub_rn(sl.d0(t, sl.at(t)), m0);
     var0 = fma_rn(d0, d0, var0);
   }
+  __syncwarp(pr.mask);
+  for (int t = pr.q; t < p.n; t += 2)
+    sl.set_d0(t, sub_rn(sl.d0(t, sl.at(t)), m0));
+  __syncwarp(pr.mask);
 
+  const C minvar = static_cast<C>(p.minvar);
   C corr_val;
   float ret = static_cast<float>(d + p.col_offset);
-  if (p.nx == 0 || border) {
-    corr_val = nxcorr<C>(p, left, m0, var0,
-                         [&](int t) { return static_cast<C>(y(t, 0)); });
+  if (!sweep) {  // pa = pb = 0: the sample at x = 0 is y1 itself
+    const float x0 = 0.f;
+    nxcorr_tile<1>(sl, p.n, p.mod, fn, var0, minvar, p.has_minvar, &x0,
+                   &corr_val);
   } else {
+    // Each thread's best over its tiles, then the pair's: the larger
+    // NXCORR, the smaller x index on a tie, as one sweep in x order.
     C best = -1;
-    float best_x = 0.f;
-    for (int ix = 0; ix < p.nx; ++ix) {
-      const float x = p.xs[ix];
-      auto interp = [&](int t) {
-        const float y0 = static_cast<float>(y(t, -1));
-        const float y1 = static_cast<float>(y(t, 0));
-        const float y2 = static_cast<float>(y(t, 1));
-        const float pa = 0.5f * ((y0 - 2.0f * y1) + y2);
-        const float pb = 0.5f * (y2 - y0);
-        const float v = rintf(((pa * x) * x + pb * x) + y1);
-        return static_cast<C>(static_cast<int>(v) & p.mod);
-      };
-      const C nxc = nxcorr<C>(p, left, m0, var0, interp);
-      if (best < nxc) {
-        best = nxc;
-        best_x = x;
+    int best_j = INT_MAX;  // none
+    for (int x0 = pr.q * kXT; x0 < p.nx; x0 += 2 * kXT) {
+      float xv[kXT];
+#pragma unroll
+      for (int j = 0; j < kXT; ++j) xv[j] = p.xs[min(x0 + j, p.nx - 1)];
+      C nxc[kXT];
+      nxcorr_tile<kXT>(sl, p.n, p.mod, fn, var0, minvar, p.has_minvar, xv,
+                       nxc);
+#pragma unroll
+      for (int j = 0; j < kXT; ++j) {
+        if (x0 + j < p.nx && best < nxc[j]) {
+          best = nxc[j];
+          best_j = x0 + j;
+        }
       }
     }
+    const C ob = __shfl_xor_sync(pr.mask, best, 1);
+    const int oj = __shfl_xor_sync(pr.mask, best_j, 1);
+    if (best < ob || (ob == best && oj < best_j)) {
+      best = ob;
+      best_j = oj;
+    }
     corr_val = best;
-    ret = ret - best_x;
+    ret = __fsub_rn(ret, best_j == INT_MAX ? 0.f : p.xs[best_j]);
   }
-  p.corr[i] = static_cast<float>(corr_val);
-  p.out[i] = (corr_val < static_cast<C>(p.threshold)) ? CUDART_NAN_F : ret;
+  if (pr.q == 0) {
+    p.corr[i] = static_cast<float>(corr_val);
+    p.out[i] = (corr_val < static_cast<C>(p.threshold)) ? CUDART_NAN_F : ret;
+  }
 }
 
 // The matched column of pixel i, or -1 (and NaN outputs) where none.
 template <typename T>
-__device__ __forceinline__ int matched(const Params<T>& p, int64_t i,
-                                       int col, int* d_out) {
+__device__ __forceinline__ int matched(const Params<T>& p, Pair pr,
+                                       int64_t i, int col, int* d_out) {
   const int d = p.disp[i];
   const int col1 = col - d;
   if (d == kInvalid || col1 < 0 || col1 >= p.w1) {
-    p.out[i] = CUDART_NAN_F;
-    p.corr[i] = CUDART_NAN_F;
+    if (pr.q == 0) {
+      p.out[i] = CUDART_NAN_F;
+      p.corr[i] = CUDART_NAN_F;
+    }
     return -1;
   }
   *d_out = d;
   return col1;
 }
 
+// Two threads per pixel, kThreads a block; dynamic shared memory: the
+// slices of the block's kThreads / 2 pixels.
 template <typename C, typename T>
-__global__ void agree_kernel(const Params<T> p) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+__global__ void __launch_bounds__(kThreads) agree_kernel(const Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Pair pr;
+  const int k = threadIdx.x >> 1;
+  const int64_t i = blockIdx.x * static_cast<int64_t>(kThreads / 2) + k;
   if (i >= p.hw) return;
   const int64_t row = i / p.w;
   const int col = static_cast<int>(i - row * p.w);
   int d;
-  const int col1 = matched(p, i, col, &d);
+  const int col1 = matched(p, pr, i, col, &d);
   if (col1 < 0) return;
-  agree_pixel<C>(p, i, d, col1,
-                 GlobalSeries<T>{p.s1 + row * p.w1 + col1, p.hw1});
+  agree_pixel<C>(p, Slice<C>(smem_raw, k, kThreads / 2, p.n), pr, i, d, col1,
+                 Series<T>{p.s1 + row * p.w1 + col1, p.hw1});
 }
 
-// blockDim.x == chunk; grid (h, nc). w1 == w and col_offset == 0.
+// Grid (h, nc); the blockDim.x / 2 thread pairs loop over the chunk's
+// columns. Dynamic shared memory: the window (n rows of wcap + 2 samples,
+// win_bytes padded to 16 B), then the pairs' slices. w1 == w and
+// col_offset == 0.
 template <typename C, typename T>
 __global__ void agree_window_kernel(const Params<T> p) {
-  extern __shared__ unsigned char smem_raw[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   T* win = reinterpret_cast<T*>(smem_raw);
   const int64_t row = blockIdx.x;
   const int oc = blockIdx.y;
   const int base = p.bases[row * p.nc + oc];
   const int ws = p.wcap + 2;
+  const T* src = p.s1 + row * p.w1;
   if (base >= 0) {  // block-uniform
-    const T* src = p.s1 + row * p.w1;
-    for (int k = threadIdx.x; k < p.n * ws; k += blockDim.x) {
-      const int t = k / ws;
-      const int c = base - 1 + (k - t * ws);
-      if (c >= 0 && c < p.w1) win[k] = src[t * p.hw1 + c];
+    for (int t = 0; t < p.n; ++t) {
+      for (int k = threadIdx.x; k < ws; k += blockDim.x) {
+        const int c = base - 1 + k;
+        if (c >= 0 && c < p.w1) win[t * ws + k] = src[t * p.hw1 + c];
+      }
     }
     __syncthreads();
   }
-  const int col = oc * p.chunk + static_cast<int>(threadIdx.x);
-  if (col >= p.w) return;
-  const int64_t i = row * p.w + col;
-  int d;
-  const int col1 = matched(p, i, col, &d);
-  if (col1 < 0) return;
-  // A kept pixel of a windowed chunk lies in [base, base + wcap - 1]
-  // (bases.cu); the test keeps shared reads in bounds for any bases.
-  if (base >= 0 && col1 >= base && col1 <= base + p.wcap - 1) {
-    agree_pixel<C>(p, i, d, col1, WindowSeries<T>{win + (col1 - base + 1), ws});
-  } else {
-    agree_pixel<C>(p, i, d, col1,
-                   GlobalSeries<T>{p.s1 + row * p.w1 + col1, p.hw1});
+  const Pair pr;
+  const int pairs = blockDim.x >> 1;
+  const Slice<C> sl(smem_raw + p.win_bytes, threadIdx.x >> 1, pairs, p.n);
+  const int end = min(p.w, (oc + 1) * p.chunk);
+  for (int col = oc * p.chunk + (threadIdx.x >> 1); col < end; col += pairs) {
+    const int64_t i = row * p.w + col;
+    int d;
+    const int col1 = matched(p, pr, i, col, &d);
+    if (col1 < 0) continue;
+    // A kept pixel of a windowed chunk lies in [base, base + wcap - 1]
+    // (bases.cu); the test keeps shared reads in bounds for any bases.
+    if (base >= 0 && col1 >= base && col1 <= base + p.wcap - 1) {
+      agree_pixel<C>(p, sl, pr, i, d, col1,
+                     Series<T>{win + (col1 - base + 1), ws});
+    } else {
+      agree_pixel<C>(p, sl, pr, i, d, col1, Series<T>{src + col1, p.hw1});
+    }
   }
 }
 
+// Lets `kern` take `bytes` of dynamic shared memory, and asks for the
+// largest shared-memory carveout (the slices bound the resident blocks).
+template <typename K>
+cudaError_t smem_attributes(K* kern, size_t bytes) {
+  if (cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared))
+    return e;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 template <typename C, typename T>
-int launch(const Params<T>& p, int h, cudaStream_t st) {
+int launch(Params<T> p, int h, int smem_limit, cudaStream_t st) {
+  const size_t slice = static_cast<size_t>(p.n) * Slice<C>::kBytes;  // a pixel
   if (p.bases == nullptr) {
-    const int threads = 128;
-    const unsigned blocks =
-        static_cast<unsigned>((p.hw + threads - 1) / threads);
-    agree_kernel<C, T><<<blocks, threads, 0, st>>>(p);
+    const size_t bytes = kThreads / 2 * slice;
+    auto* kern = agree_kernel<C, T>;
+    if (cudaError_t e = smem_attributes(kern, bytes))
+      return static_cast<int>(e);
+    const int64_t pixels = kThreads / 2;
+    const unsigned blocks = static_cast<unsigned>((p.hw + pixels - 1) / pixels);
+    kern<<<blocks, kThreads, bytes, st>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t bytes = static_cast<size_t>(p.n) * (p.wcap + 2) * sizeof(T);
+  const size_t win = static_cast<size_t>(p.n) * (p.wcap + 2) * sizeof(T);
+  p.win_bytes = static_cast<int>((win + 15) / 16 * 16);
+  // kWindowThreads threads, fewer where the window leaves no room for their
+  // pixels' slices (the wrapper has checked that one pixel's slice fits).
+  int threads = kWindowThreads;
+  while (threads > 2 && p.win_bytes + threads / 2 * slice >
+                            static_cast<size_t>(smem_limit))
+    threads /= 2;
+  const size_t bytes = p.win_bytes + threads / 2 * slice;
   auto* kern = agree_window_kernel<C, T>;
-  if (bytes > 48 * 1024) {
-    if (cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(bytes)))
-      return static_cast<int>(e);
-  }
-  kern<<<dim3(h, p.nc), p.chunk, bytes, st>>>(p);
+  if (cudaError_t e = smem_attributes(kern, bytes))
+    return static_cast<int>(e);
+  kern<<<dim3(h, p.nc), threads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -265,7 +468,7 @@ int dispatch(const void* disp, const void* s0, const void* s1, const void* xs,
              int nx, void* out, void* corr, int n, int h, int w, int w1,
              int col_offset, int mod, double threshold, double minvar,
              int has_minvar, int f64, const void* bases, int nc, int chunk,
-             int wcap, cudaStream_t st) {
+             int wcap, int smem_limit, cudaStream_t st) {
   Params<T> p;
   p.disp = static_cast<const int16_t*>(disp);
   p.s0 = static_cast<const T*>(s0);
@@ -286,9 +489,11 @@ int dispatch(const void* disp, const void* s0, const void* s1, const void* xs,
   p.nc = nc;
   p.chunk = chunk;
   p.wcap = wcap;
+  p.win_bytes = 0;
   p.threshold = threshold;
   p.minvar = minvar;
-  return f64 ? launch<double>(p, h, st) : launch<float>(p, h, st);
+  return f64 ? launch<double>(p, h, smem_limit, st)
+             : launch<float>(p, h, smem_limit, st);
 }
 
 }  // namespace
@@ -309,13 +514,16 @@ extern "C" int bicos_agree(int device, const void* disp, const void* s0,
                            const void* bases, int nc, int chunk, int wcap,
                            void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
+  const int limit = bicos_smem_optin(device);
+  if (limit < 0) return -limit;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (u16) {
     return dispatch<uint16_t>(disp, s0, s1, xs, nx, out, corr, n, h, w, w1,
                               col_offset, 0xFFFF, threshold, minvar,
-                              has_minvar, f64, bases, nc, chunk, wcap, st);
+                              has_minvar, f64, bases, nc, chunk, wcap, limit,
+                              st);
   }
   return dispatch<uint8_t>(disp, s0, s1, xs, nx, out, corr, n, h, w, w1,
                            col_offset, 0xFF, threshold, minvar, has_minvar,
-                           f64, bases, nc, chunk, wcap, st);
+                           f64, bases, nc, chunk, wcap, limit, st);
 }

@@ -10,86 +10,254 @@
 // back).
 //
 // Bound on the card: device memory. A pixel reads its n samples and writes
-// nw words (n=33 u8 LIMITED: 33 B in, 16 B out). One thread per pixel; the
-// n samples of a pixel are H*W apart, so neighbouring threads read
-// neighbouring addresses and every load is coalesced. The series is read
-// twice (its sum first, for the mean bits); the second pass hits the cache.
-// The mean bit uses the exact integer form n*s[t] < sum: no divide.
+// nw words (n=33 u8 LIMITED: 33 B in, 16 B out). The design moves both
+// sides in whole vectors:
+// * one block takes a tile of kTile consecutive pixels and copies the
+//   tile's row of every shot into shared memory with cp.async, 16 bytes a
+//   copy (16 u8 or 8 u16 pixels), all n rows in flight at once; a plane
+//   whose start is only 8- or 4-byte aligned (h*w*sizeof(T) not a multiple
+//   of 16, a stack that is a view at an offset) copies in 8 or 4 bytes, and
+//   an odd-aligned u8 plane and the ragged last tile copy element by
+//   element (the scalar edge path); a dozen resident blocks an SM overlap
+//   one block's copies with the others' arithmetic;
+// * the series is read from device memory once: the sum and the
+//   comparisons read the shared-memory copy;
+// * a thread builds its pixel's LIMITED words at two instructions a bit
+//   (limited_words: the sign of an int difference, funnel-shifted into a
+//   32-bit block, 8 shot groups a block, one bit reversal at its end; n < 4
+//   and FULL go through a 64-bit accumulator instead), and writes them as
+//   whole 16-byte stores where nw is a multiple of 4 (8-byte where even),
+//   so a warp writes contiguous bytes.
+// The mean bit uses the exact integer form n*s[t] < sum: no divide; every
+// comparison is the sign bit of an exact int difference.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-struct WordWriter {
-  uint32_t* out;
-  uint32_t cur;
-  int pos;
+constexpr int kThreads = 128;
+constexpr int kTile = 512;  // pixels a block
 
-  __device__ void emit(bool bit) {
-    cur |= static_cast<uint32_t>(bit) << pos;
-    if (++pos == 32) {
-      *out++ = cur;
-      cur = 0u;
-      pos = 0;
+template <int SZ>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (SZ == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(SZ)
+                 : "memory");
+  }
+}
+
+// x < y as bit 0 (|x - y| < 2^31).
+__device__ __forceinline__ uint32_t lt(int x, int y) {
+  return static_cast<uint32_t>(x - y) >> 31;
+}
+
+// A pixel's words: bits go into a 64-bit accumulator, each finished word
+// into a buffer of vw words (4, 2 or 1: the largest dividing nw) that
+// leaves as one store.
+struct WordOut {
+  uint32_t* out;
+  int vw;
+  uint64_t acc = 0;
+  int pos = 0;
+  uint32_t b0 = 0, b1 = 0, b2 = 0;
+  int nb = 0;
+
+  __device__ void word(uint32_t v) {
+    if (nb + 1 < vw) {
+      if (nb == 0) b0 = v;
+      else if (nb == 1) b1 = v;
+      else b2 = v;
+      ++nb;
+      return;
+    }
+    if (vw == 4) *reinterpret_cast<uint4*>(out) = make_uint4(b0, b1, b2, v);
+    else if (vw == 2) *reinterpret_cast<uint2*>(out) = make_uint2(b0, v);
+    else *out = v;
+    out += vw;
+    nb = 0;
+  }
+  // The k <= 4 low bits of `bits`, next in append order.
+  __device__ void put(uint32_t bits, int k) {
+    acc |= static_cast<uint64_t>(bits) << pos;
+    pos += k;
+    if (pos >= 32) {
+      word(static_cast<uint32_t>(acc));
+      acc >>= 32;
+      pos -= 32;
     }
   }
   __device__ void flush() {
-    if (pos) *out = cur;
+    if (pos) word(static_cast<uint32_t>(acc));
   }
 };
 
+// Appends the bit x < y, given d = x - y (|d| < 2^31: its sign bit), to
+// the low end of `acc`: one funnel shift. A block of 32 appended bits reads
+// in stream order after a bit reversal.
+__device__ __forceinline__ uint32_t push(uint32_t acc, int d) {
+  return __funnelshift_l(static_cast<uint32_t>(d), acc, 1);
+}
+
+// LIMITED words for n >= 4. After the 6 bits of shots 0 and 1 come n - 3
+// groups of 4 bits, at bit 6 + 4i: shots 2..n-3, then the closing group of
+// shots n-2 and n-1. Eight groups fill a 32-bit block: 4 funnel shifts a
+// group, one bit reversal a block; word m is block m shifted up by 6 over
+// the top 6 bits of block m-1.
+template <typename At>
+__device__ __forceinline__ void limited_words(At at, int n, int total,
+                                              WordOut& wr) {
+  const int s0 = at(0), s1 = at(1), s2 = at(2), s3 = at(3);
+  uint32_t carry = lt(s0, s1) | lt(s0, s2) << 1 | lt(n * s0, total) << 2 |
+                   lt(s1, s2) << 3 | lt(s1, s3) << 4 | lt(n * s1, total) << 5;
+  int ps2 = s0 + s1, ps1 = s1 + s2;  // pair sums of t-2 and t-1
+  int a = s2, b = s3;                // s[t], s[t+1]
+  int t = 2;
+  auto group = [&](uint32_t acc) {   // shot t's group; moves on to t + 1
+    const int c = at(t + 2);
+    const int cur = a + b;
+    acc = push(push(push(push(acc, a - b), a - c), n * a - total), ps2 - cur);
+    ps2 = ps1;
+    ps1 = cur;
+    a = b;
+    b = c;
+    ++t;
+    return acc;
+  };
+  const int full = (n - 4) / 8;  // blocks of 8 shot groups
+  for (int m = 0; m < full; ++m) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) acc = group(acc);
+    const uint32_t blk = __brev(acc);
+    wr.word(blk << 6 | carry);
+    carry = blk >> 26;
+  }
+  // The last block: the other shot groups, then the closing group
+  // (a, b = s[n-2], s[n-1]); k bits in all, 4 <= k <= 32.
+  uint32_t acc = 0;
+  int k = 4;
+  for (; t < n - 2; k += 4) acc = group(acc);
+  acc = push(push(push(push(acc, a - b), n * a - total), n * b - total),
+             ps2 - (a + b));
+  const uint32_t blk = __brev(acc) >> (32 - k);
+  wr.word(blk << 6 | carry);
+  if (6 + 4 * (n - 3) > 32 * (full + 1)) wr.word(blk >> 26);
+}
+
+// Copies the tile's row of shot t (np pixels from p0) into `dst`.
 template <typename T>
-__global__ void transform_kernel(const T* __restrict__ stack,
-                                 uint32_t* __restrict__ words, int n,
-                                 int64_t hw, int full, int nw) {
-  const int64_t p = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (p >= hw) return;
-  const T* s = stack + p;
-  auto at = [&](int t) { return static_cast<int>(s[t * hw]); };
+__device__ __forceinline__ void stage_chunk(const T* src, T* dst, int q,
+                                            int np) {
+  constexpr int kPer = 16 / sizeof(T);  // elements a 16-byte chunk
+  const T* s = src + q * kPer;
+  T* d = dst + q * kPer;
+  const unsigned mis = static_cast<unsigned>(
+      reinterpret_cast<uintptr_t>(src) & 15u);  // uniform over the row
+  if (np == kTile && mis == 0) {
+    cp_async<16>(d, s);
+  } else if (np == kTile && mis % 8 == 0) {
+    cp_async<8>(d, s);
+    cp_async<8>(d + kPer / 2, s + kPer / 2);
+  } else if (np == kTile && mis % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cp_async<4>(d + k * kPer / 4, s + k * kPer / 4);
+  } else {  // the scalar edge path
+    for (int k = 0; k < kPer && q * kPer + k < np; ++k) d[k] = s[k];
+  }
+}
 
-  int total = 0;
-  for (int t = 0; t < n; ++t) total += at(t);
+// The words of one staged tile (np pixels from p0).
+template <typename T>
+__device__ __forceinline__ void tile_words(const T* tile, uint32_t* words,
+                                           int64_t p0, int np, int n,
+                                           int full, int nw) {
+  const int vw = nw % 4 == 0 ? 4 : nw % 2 == 0 ? 2 : 1;
+  for (int j = threadIdx.x; j < np; j += kThreads) {
+    const T* s = tile + j;
+    auto at = [&](int t) { return static_cast<int>(s[t * kTile]); };
+    int total = 0;
+    for (int t = 0; t < n; ++t) total += at(t);
 
-  WordWriter wr{words + p * nw, 0u, 0};
-  if (!full) {
-    int ps2 = 0, ps1 = 0;  // pair sums of t-2 and t-1
-    for (int t = 0; t < n - 2; ++t) {
-      const int a = at(t), b = at(t + 1), c = at(t + 2);
-      wr.emit(a < b);
-      wr.emit(a < c);
-      wr.emit(n * a < total);
-      const int cur = a + b;
-      if (t >= 2) wr.emit(ps2 < cur);
-      ps2 = ps1;
-      ps1 = cur;
+    WordOut wr{words + (p0 + j) * nw, vw};
+    if (!full && n >= 4) {
+      limited_words(at, n, total, wr);
+      continue;
     }
-    const int a = at(n - 2), b = at(n - 1);
-    wr.emit(a < b);
-    wr.emit(n * a < total);
-    wr.emit(n * b < total);
-    // n < 4: the reference's pair-sum slot is still -1, so the bit is 1.
-    wr.emit(n >= 4 ? ps2 < a + b : true);
-  } else {
-    for (int t = 0; t < n - 2; ++t) {
-      const int a = at(t), b = at(t + 1), c = at(t + 2);
-      wr.emit(a < b);
-      wr.emit(a < c);
-      wr.emit(n * a < total);
-    }
-    const int a = at(n - 2), b = at(n - 1);
-    wr.emit(a < b);
-    wr.emit(n * a < total);
-    wr.emit(n * b < total);
-    for (int t = 0; t < n - 1; ++t) {
-      const int pt = at(t) + at(t + 1);
-      for (int i = 0; i < n - 1; ++i) {
-        if (i >= t - 1 && i <= t + 1) continue;
-        wr.emit(pt < at(i) + at(i + 1));
+    int a = at(0), b = at(1);
+    if (!full) {
+      // n = 2, 3: shot 0's group (n = 3), then the closing group, whose
+      // pair-sum bit is 1 (the reference's pair-sum slot is still -1).
+      if (n == 3) {
+        wr.put(lt(a, b) | lt(a, at(2)) << 1 | lt(n * a, total) << 2, 3);
+        a = b;
+        b = at(2);
+      }
+      wr.put(lt(a, b) | lt(n * a, total) << 1 | lt(n * b, total) << 2 |
+                 1u << 3,
+             4);
+    } else {
+      for (int t = 0; t < n - 2; ++t) {
+        const int c = at(t + 2);
+        wr.put(lt(a, b) | lt(a, c) << 1 | lt(n * a, total) << 2, 3);
+        a = b;
+        b = c;
+      }
+      wr.put(lt(a, b) | lt(n * a, total) << 1 | lt(n * b, total) << 2, 3);
+      for (int t = 0; t < n - 1; ++t) {
+        const int pt = at(t) + at(t + 1);
+        for (int i = 0; i < n - 1; ++i) {
+          if (i >= t - 1 && i <= t + 1) continue;
+          wr.put(lt(pt, at(i) + at(i + 1)), 1);
+        }
       }
     }
+    wr.flush();
   }
-  wr.flush();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    transform_kernel(const T* __restrict__ stack, uint32_t* __restrict__ words,
+                     int n, int64_t hw, int full, int nw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tile = reinterpret_cast<T*>(smem_raw);  // (n, kTile)
+  const int64_t p0 = blockIdx.x * static_cast<int64_t>(kTile);
+  const int np = hw - p0 < kTile ? static_cast<int>(hw - p0) : kTile;
+  constexpr int kChunks = kTile * sizeof(T) / 16;  // a row
+  for (int k = threadIdx.x; k < n * kChunks; k += kThreads) {
+    const int t = k / kChunks;
+    stage_chunk(stack + t * hw + p0, tile + t * kTile, k - t * kChunks, np);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  tile_words(tile, words, p0, np, n, full, nw);
+}
+
+template <typename T>
+int launch(const T* stack, uint32_t* words, int n, int64_t hw, int full,
+           int nw, cudaStream_t st) {
+  const size_t bytes = static_cast<size_t>(n) * kTile * sizeof(T);
+  auto* kern = transform_kernel<T>;
+  if (cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared))
+    return static_cast<int>(e);
+  if (bytes > 48 * 1024) {
+    if (cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(bytes)))
+      return static_cast<int>(e);
+  }
+  const unsigned blocks = static_cast<unsigned>((hw + kTile - 1) / kTile);
+  kern<<<blocks, kThreads, bytes, st>>>(stack, words, n, hw, full, nw);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -103,17 +271,11 @@ extern "C" int bicos_transform(int device, const void* stack, void* words,
                                void* stream) {
   if (cudaError_t e = cudaSetDevice(device)) return static_cast<int>(e);
   const int64_t hw = static_cast<int64_t>(h) * w;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((hw + threads - 1) / threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (u16) {
-    transform_kernel<uint16_t><<<blocks, threads, 0, st>>>(
-        static_cast<const uint16_t*>(stack), static_cast<uint32_t*>(words),
-        n, hw, full, nw);
-  } else {
-    transform_kernel<uint8_t><<<blocks, threads, 0, st>>>(
-        static_cast<const uint8_t*>(stack), static_cast<uint32_t*>(words), n,
-        hw, full, nw);
+    return launch(static_cast<const uint16_t*>(stack),
+                  static_cast<uint32_t*>(words), n, hw, full, nw, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch(static_cast<const uint8_t*>(stack),
+                static_cast<uint32_t*>(words), n, hw, full, nw, st);
 }

@@ -9,7 +9,8 @@ float32 (SINGLE) or float64 (DOUBLE, ``precision``), and reads the right
 series from global memory or, with per (row, chunk) ``bases`` (the dynamic
 window, ``BICOS_AGREE_DYNWIN``), from a window of them staged in shared
 memory; both variants run the same arithmetic, so their results are equal
-bit for bit.
+bit for bit. Each thread caches its pixel's per-shot terms in shared memory
+(``csrc/agree.cu``); the windowed block puts them beside its window.
 """
 
 from __future__ import annotations
@@ -112,8 +113,11 @@ def agree_cuda(disp: torch.Tensor, stack0: torch.Tensor,
         nc = -(-w // chunk)
         if bases.dtype != torch.int32 or tuple(bases.shape) != (h, nc):
             raise ValueError(f"bases must be an ({h}, {nc}) int32 tensor")
-        # One block stages n shots of the columns [base - 1, base + wcap].
-        need = n * (wcap + 2) * stack0.element_size()
+        # One block stages n shots of the columns [base - 1, base + wcap]
+        # (padded to 16 bytes) beside at least one thread's cached shot
+        # terms (16 bytes a shot, 24 in DOUBLE).
+        window = -(-n * (wcap + 2) * stack0.element_size() // 16) * 16
+        need = window + n * (24 if precision == Precision.DOUBLE else 16)
         limit = _build.library().bicos_smem_optin(dev.index)
         if limit < 0:
             _build.check(-limit, "agree")

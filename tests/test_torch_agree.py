@@ -159,3 +159,98 @@ def test_out_of_bounds_and_border(rng):
     assert np.isnan(out[0, 6]) and np.isnan(corr[0, 6])
     # Border columns take the integer check: the output is d itself.
     assert out[0, 3] == 3.0 and out[0, 18] == -1.0
+
+
+# ---------------------------------------------------------------------------
+# The exact-arithmetic identities csrc/agree.cu's sweep relies on, in the
+# form the kernel computes them (numpy float32/float64 round every operation
+# and never contract): the interpolated sample is rounded and cast by the
+# bits of v + 1.5 * 2^23 and converted back by (2^23 | u) - 2^23 (float) or
+# (2^52 | u) - 2^52 (double); each must equal rint -> int32 -> & mod ->
+# float, which is what the plain agree (and the JAX package) computes.
+
+MAGIC_ROUND = np.float32(1.5 * 2**23)
+
+
+def _sample_bits(pa, pb, y1, x, mod):
+    """agree.cu's sample(): v = ((pa*x)*x + pb*x) + y1 in float32, and
+    the bits of v + 1.5 * 2^23 masked to the input width."""
+    v = ((pa * x) * x + pb * x) + y1
+    return v, (v + MAGIC_ROUND).view(np.int32) & np.int32(mod)
+
+
+def _from_int_f32(u):
+    return (u.astype(np.int32) | np.int32(0x4B000000)).view(np.float32) \
+        - np.float32(2**23)
+
+
+def _from_int_f64(u):
+    return (u.astype(np.int64) | np.int64(0x43300000 << 32)).view(
+        np.float64) - np.float64(2**52)
+
+
+def _want(v, mod):
+    return np.rint(v).astype(np.int32) & np.int32(mod)
+
+
+@pytest.mark.parametrize("step", [0.1, 0.25, 0.5])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_sweep_rounding_identities(dtype, step):
+    """Every x of the grid on seeded (y0, y1, y2) over the full input range
+    and on every corner of it (0 and the maximum side by side, where the
+    parabola overshoots below 0 and above the maximum)."""
+    hi = int(np.iinfo(dtype).max)
+    g = np.random.default_rng(0xA6EE)
+    corners = np.array(np.meshgrid([0, hi], [0, hi], [0, hi])).reshape(3, -1)
+    y = np.concatenate([g.integers(0, hi + 1, (3, 20000)), corners], axis=1)
+    y0, y1, y2 = y.astype(np.float32)
+    pa = np.float32(0.5) * ((y0 - np.float32(2.0) * y1) + y2)
+    pb = np.float32(0.5) * (y2 - y0)
+    overshoot = False
+    for x in ta.subpixel_xgrid(step):
+        v, bits = _sample_bits(pa, pb, y1, np.float32(x), hi)
+        assert np.abs(v).max() < 2**18
+        overshoot |= bool((v < -0.5).any() or (v > hi + 0.5).any())
+        want = _want(v, hi)
+        np.testing.assert_array_equal(bits, want)
+        np.testing.assert_array_equal(_from_int_f32(bits),
+                                      want.astype(np.float32))
+        np.testing.assert_array_equal(_from_int_f64(bits),
+                                      want.astype(np.float64))
+    assert overshoot
+
+
+@pytest.mark.parametrize("mod", [0xFF, 0xFFFF])
+def test_rounding_identities_at_boundaries(mod):
+    """Half-integers (ties go to even), negatives and the ends of the
+    identities' domain |v| < 2^22: rintf, (int)rintf and the masked cast."""
+    k = np.arange(-2**18, 2**18 + 1, dtype=np.int64)
+    v = np.concatenate([
+        k + 0.5, k - 0.5, k, k + 0.25, k - 0.75,
+        [-0.0, -0.3, -0.5, -1.5, 2**22 - 1.5, 2**22 - 0.5,
+         -(2**22) + 0.5]]).astype(np.float32)
+    r = np.rint(v)
+    np.testing.assert_array_equal((v + MAGIC_ROUND) - MAGIC_ROUND, r)
+    np.testing.assert_array_equal(
+        (v + MAGIC_ROUND).view(np.int32) - np.int32(0x4B400000),
+        r.astype(np.int32))
+    bits = (v + MAGIC_ROUND).view(np.int32) & np.int32(mod)
+    np.testing.assert_array_equal(bits, _want(v, mod))
+    np.testing.assert_array_equal(_from_int_f32(bits),
+                                  _want(v, mod).astype(np.float32))
+
+
+def test_int_to_float_identities_and_integer_sums():
+    """(2^23 | u) - 2^23 and (2^52 | u) - 2^52 are exact for 0 <= u < 2^23,
+    and a serial float32 sum of up to 65 samples of 0..65535 is the integer
+    sum (the sweep's mean pass sums in integers)."""
+    g = np.random.default_rng(0x5EED)
+    u = np.concatenate([g.integers(0, 2**23, 100000),
+                        [0, 1, 255, 65535, 65 * 65535, 2**23 - 1]])
+    np.testing.assert_array_equal(_from_int_f32(u), u.astype(np.float32))
+    np.testing.assert_array_equal(_from_int_f64(u), u.astype(np.float64))
+    s = g.integers(0, 65536, (2000, 65))
+    s[0] = 65535
+    serial = np.add.accumulate(s.astype(np.float32), axis=1)[:, -1]
+    np.testing.assert_array_equal(serial, s.sum(axis=1).astype(np.float32))
+    np.testing.assert_array_equal(_from_int_f32(s.sum(axis=1)), serial)

@@ -402,15 +402,15 @@ def test_bases_kernel_equal(dev, chunk, wcap, w):
     assert bool((want >= 0).any()) and bool((want < 0).any())
 
 
-def _plain_agree(disp, s0, s1, thr, step, minvar, precision):
+def _plain_agree(disp, s0, s1, thr, step, minvar, precision, col_offset=0):
     if step is None:
-        po, pc = ta.agree_integer(disp, s0, s1, thr, minvar,
+        po, pc = ta.agree_integer(disp, s0, s1, thr, minvar, col_offset,
                                   precision=precision)
         po = torch.where(po == ta.INVALID_I16,
                          torch.tensor(float("nan"), device=po.device),
                          po.float())
         return po, pc
-    return ta.agree_subpixel(disp, s0, s1, thr, step, minvar,
+    return ta.agree_subpixel(disp, s0, s1, thr, step, minvar, col_offset,
                              precision=precision)
 
 
@@ -530,3 +530,150 @@ def test_match_cuda_double_launches_and_matches_plain(dev):
         "band": 0, "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     _assert_plain_bar(got_d, got_c, want_d, want_c)
+
+
+# ---------------------------------------------------------------------------
+# The edges of agree.cu's cached shot terms and exact rounding, and of
+# transform.cu's vector copies and stores.
+
+EDGE_W = 700  # a window of (256, 640) resolves at this width
+
+
+def _agree_edge(dev, case):
+    """``(s0, s1, disp, threshold, minvar, col_offset)`` of one agree edge
+    case, made from seeds."""
+    g = np.random.default_rng(23)
+    n, dtype = {"n2": (2, np.uint8), "n65_u8": (65, np.uint8),
+                "n65_u16": (65, np.uint16), "u16_extremes": (9, np.uint16),
+                "band_offset": (9, np.uint16)}.get(case, (9, np.uint8))
+    s0, s1 = _pair(dev, n, 4, EDGE_W, dtype, seed=29)
+    disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
+                           tb.NoDuplicates(), backend="torch")
+    thr, minvar, off = 0.5, 2.0 * n, 0
+    if case in ("ties_constant", "ties_symmetric"):
+        # Equal neighbours (y0 == y1 == y2: every x gives one series) or a
+        # mirror (y0 == y2: x and -x give one series).
+        cols = torch.arange(EDGE_W, device=dev)
+        src = torch.zeros_like(cols) if case == "ties_constant" else cols % 2
+        s1 = s1[:, :, src].contiguous()
+        thr = -1.0
+    elif case in ("nan_no_minvar", "minvar"):
+        s0[:, 1] = 77  # zero variance on row 1
+        thr = -1.0
+        minvar = None if case == "nan_no_minvar" else minvar
+    elif case == "border":
+        cols = torch.arange(0, EDGE_W, 5, device=dev)
+        disp = disp.clone()
+        disp[0, cols] = cols.to(torch.int16)  # col1 = 0
+        disp[1, cols] = (cols - (EDGE_W - 1)).to(torch.int16)  # col1 = w - 1
+    elif case in ("u16_extremes", "band_offset"):
+        # 0 next to 65535: the parabola overshoots below 0 and above 65535.
+        s1 = torch.from_numpy(g.choice([0, 65535], size=tuple(s1.shape))
+                              .astype(np.uint16)).to(dev)
+        thr = -1.0
+        if case == "band_offset":
+            off = 150
+            local = disp[:, off:off + 300].to(torch.int32)
+            disp = torch.where(local == ta.INVALID_I16, ta.INVALID_I16,
+                               local - off).to(torch.int16)
+            s0 = s0[:, :, off:off + 300]
+    return (s0.contiguous(), s1.contiguous(), disp.contiguous(), thr, minvar,
+            off)
+
+
+AGREE_EDGES = ["ties_constant", "ties_symmetric", "nan_no_minvar", "minvar",
+               "border", "n2", "n65_u8", "n65_u16", "u16_extremes",
+               "band_offset"]
+
+
+@pytest.mark.parametrize("step", [0.1, 0.25, None])
+@pytest.mark.parametrize("case", AGREE_EDGES)
+def test_agree_kernel_edges(dev, case, step):
+    """The agree kernel against the plain agree (the usual bar), its DOUBLE
+    instantiation against the plain f64 agree and the windowed variant
+    against the global-read one (both bit for bit), at the edges of the
+    sweep: ties, NaN and -1 NXCORRs, border columns, n = 2 and 65, u16
+    overshoot, a column band with an offset."""
+    s0, s1, disp, thr, minvar, off = _agree_edge(dev, case)
+    out, corr = agree_cuda(disp, s0, s1, thr, step, minvar, off)
+    _assert_plain_bar(out, corr, *_plain_agree(
+        disp, s0, s1, thr, step, minvar, tb.Precision.SINGLE, off))
+    dbl = agree_cuda(disp, s0, s1, thr, step, minvar, off,
+                     precision=tb.Precision.DOUBLE)
+    for a, b in zip(dbl, _plain_agree(disp, s0, s1, thr, step, minvar,
+                                      tb.Precision.DOUBLE, off)):
+        _assert_bitwise(a, b)
+    if not off:
+        chunk, wcap = 256, 640
+        bases = chunk_window_bases_cuda(
+            disp, EDGE_W, -(-EDGE_W // chunk) * chunk, wcap, chunk)
+        assert bool((bases >= 0).any())
+        for prec, want in ((tb.Precision.SINGLE, (out, corr)),
+                           (tb.Precision.DOUBLE, dbl)):
+            got = agree_cuda(disp, s0, s1, thr, step, minvar, bases=bases,
+                             chunk=chunk, wcap=wcap, precision=prec)
+            for a, b in zip(got, want):
+                _assert_bitwise(a, b)
+    col1 = torch.arange(s0.shape[2], device=dev)[None] - disp.long()
+    kept = ((disp != ta.INVALID_I16) & (col1 >= 0)
+            & (col1 < s1.shape[2]))
+    swept = kept & (col1 > 0) & (col1 < s1.shape[2] - 1)
+    if step is None:
+        swept = torch.zeros_like(kept)
+    if case == "ties_constant" and step is not None:
+        # Every x ties: the first, x = -1, wins.
+        assert bool(swept.any())
+        assert torch.equal(out[swept], disp[swept].float() + 1.0)
+    if case == "ties_symmetric" and step == 0.25:
+        # x and -x tie (the 0.25 grid is exact, unlike 0.1's accumulated
+        # one): the negative one comes first, so d - x >= d.
+        assert bool((out[swept] >= disp[swept].float()).all())
+    if case == "nan_no_minvar":
+        # Row 1's NXCORRs are NaN: kept, with corr -1 where no x wins and
+        # NaN on the integer check.
+        row = kept[1]
+        assert bool(row.any()) and not bool(torch.isnan(out[1][row]).any())
+        assert bool((corr[1][swept[1]] == -1.0).all())
+        assert bool(torch.isnan(corr[1][row & ~swept[1]]).all())
+    if case == "minvar":
+        assert bool((corr[1][kept[1]] == -1.0).all())
+    if case == "border":
+        assert bool((kept & ~swept).any())
+
+
+@pytest.mark.parametrize("n, mode, dtype, h, w, cut", [
+    (33, "LIMITED", np.uint8, 7, 301, None),      # h*w odd: unaligned planes
+    (33, "LIMITED", np.uint8, 4, 1600, None),     # whole tiles, aligned
+    (9, "LIMITED", np.uint8, 6, 1001, "rows"),    # a row band made contiguous
+    (9, "LIMITED", np.uint8, 5, 1030, "view"),    # a view at a shot offset
+    (2, "LIMITED", np.uint16, 6, 333, None),
+    (3, "LIMITED", np.uint16, 5, 517, "view"),
+    (3, "LIMITED", np.uint8, 3, 999, None),
+    (65, "LIMITED", np.uint16, 6, 1111, "rows"),
+    (65, "LIMITED", np.uint8, 2, 1500, None),
+    # (n - 4) % 8 >= 6: the last block spills into one more word.
+    (10, "LIMITED", np.uint8, 5, 301, None),
+    (10, "LIMITED", np.uint16, 4, 517, "view"),
+    (11, "LIMITED", np.uint8, 6, 1001, "rows"),
+    (11, "LIMITED", np.uint16, 3, 999, None),
+    (18, "LIMITED", np.uint8, 4, 1600, None),
+    (18, "LIMITED", np.uint16, 5, 333, None),
+    (27, "LIMITED", np.uint8, 3, 517, "view"),
+    (27, "LIMITED", np.uint16, 6, 1111, "rows"),
+    (2, "FULL", np.uint8, 3, 301, None),
+    (3, "FULL", np.uint8, 4, 517, "view"),
+    (16, "FULL", np.uint16, 5, 203, None),
+])
+def test_transform_kernel_edges(dev, n, mode, dtype, h, w, cut):
+    """Ragged tails (h*w not a multiple of 4 or 16, odd widths), plane
+    strides that are not 16-byte aligned, a row band made contiguous and a
+    stack that is a view at an offset: bit-identical to the plain
+    transform."""
+    s, _ = _pair(dev, n + (cut == "view"), h, w, dtype, seed=31)
+    if cut == "rows":
+        s = s[:, 1:h - 2].contiguous()
+    elif cut == "view":
+        s = s[1:]
+    assert s.is_contiguous()
+    m = tb.TransformMode[mode]
+    assert torch.equal(descriptor_words_cuda(s, m), td.descriptor_words(s, m))

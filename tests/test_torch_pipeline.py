@@ -178,9 +178,10 @@ def test_cuda_backend_raises_without_a_card(rng):
 @pytest.mark.parametrize("cfg", [
     tb.Config(precision=tb.Precision.DOUBLE),
 ])
-def test_unported_options_raise(rng, cfg):
-    """No option is left unported: DOUBLE, the last one refused, now runs
-    (its results are held to the JAX package in test_torch_double.py)."""
+def test_double_precision_runs(rng, cfg):
+    """DOUBLE, the last option the port once refused, runs and returns the
+    int16 disparity and the float32 corrmap (its results are held to the
+    JAX package in test_torch_double.py)."""
     s0, s1, _ = make_stack_pair(rng, 4, 2, 8)
     disp, corr = tb.match(s0, s1, cfg, corrmap=True, device="cpu")
     assert disp.dtype == torch.int16 and corr.dtype == torch.float32
