@@ -4,28 +4,30 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, power limit), the torch and CUDA versions, and
-   builds the CUDA kernels from ``libbicos_tpu_torch/csrc``; prints each
-   kernel's registers, stack and spills (``-Xptxas -v``; an agree or
-   transform kernel that spills fails the run) and the agree and transform
-   kernels' SASS opcode counts, whole and per sweep loop
-   (``cuobjdump -sass``).
+   builds the CUDA kernels from ``libbicos_tpu_torch/csrc``; prints the
+   registers, stack and spills (``-Xptxas -v``) of the agree, transform,
+   Consistency scan and fused ring step kernels (one of them that spills
+   fails the run) and the agree and transform kernels' SASS opcode counts,
+   whole and per sweep loop (``cuobjdump -sass``).
 2. Compares each kernel with its plain PyTorch version on the card, at a
    full-width row band of the headline input (n=33, 64 x 3300, u8, LIMITED)
    and at a ragged small shape (n=9, 7 x 1001, u16, FULL): the scan
    unranged and ranged (0, 511) and with a range that leaves no candidate,
    the consistency scan with and without no_dupes and range (0, 511), and
-   the agree sweep, and the W-band ring step (every band and visit of a
-   4-band ring, unranged, ranged (0, 511), with no candidate, and without
-   last) and the agree of a left column band against the whole right row
-   (column offset). The dynamic window at both shapes and at n=65 u16 (16
+   the agree sweep, the W-band ring step and the fused Consistency ring
+   step (every band and visit of a 4-band ring, unranged, ranged (0, 511),
+   with no candidate, and without last) and the agree of a left column
+   band against the whole right row (column offset). The dynamic window at both shapes and at n=65 u16 (16
    x 1412, LIMITED), for each (chunk, wcap) of (256, 640) and (512, 1024)
    that the width admits: the bases kernel on the search disparity and on
    a mixed field (planted matches make some chunks fall back), and the
    windowed agree on the mixed field against the global-read agree (equal
    bit for bit, corrmap included) and the plain agree; the DOUBLE agree
    against the plain f64 agree, bit for bit. Then one 2 x 40000 consistency case
-   (reverse minima in global memory), the ring step on n=3 LIMITED words
-   (16 x 3300) and on a 2 x 20000 n=9 row pair over 4 bands.
+   (reverse minima in global memory), both ring steps on n=3 LIMITED words
+   (16 x 3300) and on a 2 x 20000 n=9 row pair over 4 bands, and the fused
+   step on a 1-band ring at 32767 columns (reverse minima in global
+   memory).
 3. Runs four full-size calls ``match(s0, s1, cfg, backend="cuda")`` (n=33,
    2200 x 3300, u8, LIMITED, threshold 0.96, min_variance 2.0, subpixel
    step 0.1) on synthetic input: A the NoDuplicates headline, B
@@ -47,11 +49,12 @@
    ``match_sharded_w`` NoDuplicates, F ``match_sharded_w`` Consistency(1,
    True), G ``match_sharded_w`` NoDuplicates with (0, 511), H
    ``match_sharded`` (4 row bands) NoDuplicates. Each must launch exactly
-   its path's kernels, run deterministically, and equal the single-card
-   call of its configuration (A, B, C, A) exactly: the same NaN mask,
-   equal disparities, equal corrmaps. The ring's band kernel is compared
-   with its plain fold at E's and G's shapes, and each call's kernels are
-   timed at its shapes beside the call.
+   its path's kernels (F: one ring, 16 fused Consistency steps), run
+   deterministically, and equal the single-card call of its configuration
+   (A, B, C, A) exactly: the same NaN mask, equal disparities, equal
+   corrmaps. The ring's band kernel is compared with its plain fold at E's
+   and G's shapes, the fused step with its plain version at F's, and each
+   call's kernels are timed at its shapes beside the call.
 
 The bars: descriptor words bit-identical; first/last argmins and reverse
 argmins equal, sentinels included; agree corrmaps with the same NaN mask
@@ -99,6 +102,10 @@ SOURCES = {
         "libbicos_tpu/kernels/agree.py:483",
         "libbicos_tpu/kernels/agree.py:826"]),
     "band": ("libbicos_tpu_torch/csrc/band.cu", [_H + "2216", _H + "1813"]),
+    # The fused Consistency ring step: the band kernels' role in F, where
+    # the TPU runs them in two rings.
+    "band_consistency": ("libbicos_tpu_torch/csrc/band.cu",
+                         [_H + "2216", _H + "1813"]),
     "bases": ("libbicos_tpu_torch/csrc/bases.cu",
               ["libbicos_tpu/kernels/agree.py:298"]),
 }
@@ -205,16 +212,26 @@ def agree_bound(torch, disp, s0, s1, nx, double=False, conv_pipe=False):
 
 _KERNEL_NAME = re.compile(
     r"(agree_window_kernel|agree_kernel|transform_kernel)I([a-z]+)E")
+_SCAN_NAME = re.compile(
+    r"\d(band_consistency_kernel|consistency_kernel)I((?:L[ib]\d+E)+)E")
 _TYPE_LETTERS = {"f": "float", "d": "double", "h": "u8", "t": "u16"}
+# The kernels whose registers, stack and spills build_report prints.
+REPORTED = ("agree", "transform", "consistency", "band_consistency")
 
 
 def short_name(mangled: str) -> str:
     """``agree_kernel<float,u8>`` for an agree or transform kernel's
-    mangled name, else the mangled name."""
+    mangled name, ``consistency_kernel<4,1,0>`` (nw, last, global reverse
+    minima) for a Consistency scan or fused ring step, else the mangled
+    name."""
     m = _KERNEL_NAME.search(mangled)
-    if not m:
-        return mangled
-    return f"{m[1]}<{','.join(_TYPE_LETTERS.get(c, c) for c in m[2])}>"
+    if m:
+        return f"{m[1]}<{','.join(_TYPE_LETTERS.get(c, c) for c in m[2])}>"
+    m = _SCAN_NAME.search(mangled)
+    if m:
+        args = re.findall(r"L[ib](\d+)E", m[2])
+        return f"{m[1]}<{','.join(args)}>"
+    return mangled
 
 
 def ptxas_report(log: str) -> dict:
@@ -263,7 +280,8 @@ def sass_report(lib: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = short_name(m[1])
-            cur = funcs.setdefault(name, []) if name != m[1] else None
+            cur = (funcs.setdefault(name, [])
+                   if name.startswith(("agree", "transform")) else None)
             continue
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_]*)(?:\.\S+)?\s*([^;]*);", line)
@@ -292,15 +310,25 @@ def sass_report(lib: Path) -> dict:
 
 
 def build_report(lib: Path) -> None:
-    """Prints the agree and transform kernels' registers and spills (the
-    ``-Xptxas -v`` log beside ``lib``) and their SASS opcode counts; fails
-    if one of them spills."""
+    """Prints the registers and spills (the ``-Xptxas -v`` log beside
+    ``lib``) of the agree, transform, Consistency scan and fused ring step
+    kernels, and the agree and transform kernels' SASS opcode counts; fails
+    if one of those kernels spills."""
     log = lib.with_suffix(".log")
     ptxas = ptxas_report(log.read_text()) if log.exists() else {}
-    mine = {k: v for k, v in ptxas.items()
-            if k.startswith(("agree", "transform"))}
+    mine = {k: v for k, v in ptxas.items() if k.startswith(REPORTED)}
+    if not any(k.startswith("band_consistency") for k in mine):
+        fail("the build log names no fused Consistency ring step kernel")
     for k, v in mine.items():
-        print(f"  ptxas: {k}: {v}", flush=True)
+        if k.startswith(("agree", "transform")):
+            print(f"  ptxas: {k}: {v}", flush=True)
+    for fam in ("consistency_kernel", "band_consistency_kernel"):
+        # registers/stack/spill bytes of each <nw,last,global> instance
+        print(f"  ptxas: {fam}<nw,last,global> registers/stack/spills: "
+              + " ".join(f"{k[len(fam):]} {v.get('registers')}/"
+                         f"{v.get('stack')}/{v.get('spill_stores', 0)}"
+                         for k, v in mine.items() if k.startswith(fam + "<")),
+              flush=True)
     others = {v.get("registers") for k, v in ptxas.items() if k not in mine}
     print(f"  ptxas: {len(ptxas) - len(mine)} other kernels, registers "
           f"{sorted(others)}", flush=True)
@@ -637,6 +665,64 @@ def check_band(torch, label, a, b, drange, need_last=True,
     return steps, got, plain_ms
 
 
+def cons_ring_acc(torch, a, nbands, need_last):
+    """Fresh accumulators for a fused Consistency ring over ``nbands``
+    column bands of words ``a``: ``(forward (mf, ml) per band, reverse
+    (rf, rl))``, the reverse ones ``(H, nbands * band)``."""
+    from libbicos_tpu_torch import search as ts
+
+    band = -(-a.shape[1] // nbands)
+    rf = torch.full((a.shape[0], nbands * band), ts.BIG, dtype=torch.int32,
+                    device=a.device)
+    return (ring_acc(torch, a, nbands, need_last),
+            (rf, rf.clone() if need_last else None))
+
+
+def run_cons_steps(steps, acc, w, drange, fold):
+    fwd, (rf, rl) = acc
+    for j, a_j, b_s, off0, off1 in steps:
+        fold(a_j, b_s, off0, off1, *fwd[j], rf, rl, w_total=w, drange=drange)
+
+
+def check_cons_band(torch, label, a, b, drange, need_last=True,
+                    every_visit=False, nbands=NBANDS):
+    """The fused Consistency ring step against its plain version after
+    every step of an ``nbands``-band ring (``a``, ``b``: equal widths),
+    forward and reverse accumulators; returns (steps, kernel acc, plain
+    ms)."""
+    from libbicos_tpu_torch import search as ts
+    from libbicos_tpu_torch.kernels.band import row_minima_consistency_band
+
+    steps = ring_steps(a, b, nbands, drange, every_visit)
+    w = b.shape[1]
+    got = cons_ring_acc(torch, a, nbands, need_last)
+    want = cons_ring_acc(torch, a, nbands, need_last)
+    plain_ms = 0.0
+    for step in steps:
+        run_cons_steps([step], got, w, drange, row_minima_consistency_band)
+        _, ms = plain_timed(torch, lambda: run_cons_steps(
+            [step], want, w, drange,
+            ts.row_minima_consistency_band_torch_words))
+        plain_ms += ms
+        j = step[0]
+        for g, x in zip(got[0][j] + got[1], want[0][j] + want[1]):
+            if g is None:
+                continue
+            note_err("band_consistency", g, x)
+            if not torch.equal(g, x):
+                fail(f"{label}: fused Consistency step (band {j}, offsets "
+                     f"{step[3:]}, range {drange}) differs from plain in "
+                     f"{int((g != x).sum())} values")
+    first = torch.cat([ts.decode_minima(*acc, w)[1] for acc in got[0]],
+                      1)[:, :w]
+    first1 = ts.decode_minima(got[1][0], None, w)[1][:, :w]
+    print(f"  {label} fused Consistency ring ({nbands} bands, {len(steps)} "
+          f"steps, range {drange}, need_last={need_last}): equal after every "
+          f"step; {int((first < 0).sum())} left and {int((first1 < 0).sum())}"
+          f" right pixels without a candidate", flush=True)
+    return steps, got, plain_ms
+
+
 def compare_case(torch, label, s0, s1, mode, steps):
     """Each kernel against its plain version on one input."""
     from libbicos_tpu_torch import descriptor as td
@@ -660,6 +746,11 @@ def compare_case(torch, label, s0, s1, mode, steps):
     check_band(torch, label, w0, w1, (width + 100, width + 600),
                every_visit=True)
     check_band(torch, label, w0, w1, None, need_last=False)
+    for drange in (None, DRANGE):
+        check_cons_band(torch, label, w0, w1, drange)
+    check_cons_band(torch, label, w0, w1, (width + 100, width + 600),
+                    every_visit=True)
+    check_cons_band(torch, label, w0, w1, None, need_last=False)
     # A left column band against the whole right row, as the W-banded
     # agree runs it: band-local disparities and the band's column offset.
     off, band = width // NBANDS, -(-width // NBANDS)
@@ -794,6 +885,15 @@ def main() -> None:
                     for x in (x0, x1))
         for drange in (None, DRANGE):
             check_band(torch, label, xw0, xw1, drange)
+            check_cons_band(torch, label, xw0, xw1, drange)
+    # A 1-band ring at the widest packable row: the fused step's reverse
+    # minima (262 KB) go to the accumulators with global atomics.
+    x0, x1, _ = synthetic_stack_pair(9, 1, 32767, seed=5)
+    xw0, xw1 = (td.descriptor_words(torch.from_numpy(x).to(dev), mode)
+                for x in (x0, x1))
+    for drange in (None, DRANGE):
+        check_cons_band(torch, "wide n=9 1x32767 u8 LIMITED", xw0, xw1,
+                        drange, nbands=1)
     # The window's largest block: n=65 u16 at wcap 1024 stages 133,380
     # bytes of shared memory (the opt-in limit).
     x0, x1 = (torch.from_numpy(x).to(dev) for x in synthetic_stack_pair(
@@ -964,13 +1064,17 @@ def main() -> None:
     # Phase 4: the sharded paths on NBANDS bands of the one card, each equal
     # to the single-card call of its configuration.
     from libbicos_tpu_torch import sharding
-    from libbicos_tpu_torch.kernels.band import row_minima_band
+    from libbicos_tpu_torch.kernels.band import (
+        row_minima_band,
+        row_minima_consistency_band,
+    )
 
     mesh = sharding.make_mesh(NBANDS, virtual=True, device=dev)
     wpath = {**path, "transform": 2 * NBANDS, "agree": NBANDS}
     sharded = {  # label: (single-card call, entry point, launches)
         "E": ("A", sharding.match_sharded_w, {**wpath, "band": 16}),
-        "F": ("B", sharding.match_sharded_w, {**wpath, "band": 32}),
+        "F": ("B", sharding.match_sharded_w,
+              {**wpath, "band_consistency": 16}),
         "G": ("C", sharding.match_sharded_w, {**wpath, "band": 8}),
         "H": ("A", sharding.match_sharded, {**wpath, "hamming": NBANDS}),
     }
@@ -1010,35 +1114,38 @@ def main() -> None:
                     for d, a, b in zip(disp_bands, row_b0, row_b1)]),
             }
         else:
-            if label in ("E", "G"):  # the ring kernel vs plain, full size
+            # The ring kernel vs its plain version at the call's shapes.
+            if label == "F":
+                steps, acc, plain_ms = check_cons_band(
+                    torch, f"call {label}", w0, w1, drange)
+                kname, fold, run = ("band_consistency",
+                                    row_minima_consistency_band,
+                                    run_cons_steps)
+                cons_timing = (time_ms(torch, lambda: run(
+                    steps, acc, w, drange, fold)), plain_ms)
+            else:
                 steps, acc, plain_ms = check_band(torch, f"call {label}", w0,
                                                   w1, drange)
+                kname, fold, run = "band", row_minima_band, run_steps
                 if label == "E":
-                    band_timing = (time_ms(torch, lambda: run_steps(
-                        steps, acc, w, drange, row_minima_band)), plain_ms)
-            rings = [ring_steps(w0, w1, NBANDS, drange)]
-            accs = [ring_acc(torch, w0, NBANDS, True)]
-            if label == "F":
-                rings.append(ring_steps(w1, w0, NBANDS,
-                                        ts.reflect_range(drange)))
-                accs.append(ring_acc(torch, w1, NBANDS, True))
+                    band_timing = (time_ms(torch, lambda: run(
+                        steps, acc, w, drange, fold)), plain_ms)
             col_disp = sharding._bands(search_disp[ref], 1, mesh)
             parts = {
                 "transform": time_ms(torch, lambda: [
                     descriptor_words_cuda(x, mode) for x in col_b0 + col_b1]),
-                "band": time_ms(torch, lambda: [
-                    run_steps(st, acc, w, dr, row_minima_band)
-                    for st, acc, dr in zip(
-                        rings, accs, (drange, ts.reflect_range(drange)))]),
+                kname: time_ms(torch, lambda: run(steps, acc, w, drange,
+                                                  fold)),
                 "agree": time_ms(torch, lambda: [
                     sharding._agree_banded(d, x, s1, off, cfg, "cuda")
                     for d, x, off in zip(col_disp, col_b0, offs)]),
             }
         res.update(variant=repr(cfg.variant), drange=drange,
                    entry=fn.__name__, equals=ref, parts_ms=parts,
-                   # F's two rings run the popcounts twice; the function
-                   # (forward and reverse minima) needs them once.
-                   scan_bound_ms=scan_bound(h, w, w0.shape[2], drange, 8)[0])
+                   # F's fused steps, like B's scan, pay each popcount once
+                   # for both directions.
+                   scan_bound_ms=scan_bound(h, w, w0.shape[2], drange,
+                                            16 if label == "F" else 8)[0])
         results[label] = res
         print(f"call {label} ({fn.__name__}, {cfg.variant!r}, range "
               f"{drange}, {NBANDS} bands on one card): {res['ms']:.3f} ms "
@@ -1063,16 +1170,19 @@ def main() -> None:
             time_ms(torch, lambda: ta.agree_subpixel(
                 search_disp["A"], s0, s1, THRESHOLD, STEP, mv), reps=3)),
         "band": band_timing,  # the 16 ring steps of call E
+        "band_consistency": cons_timing,  # the 16 fused steps of call F
         "bases": (bases_ms, bases_plain_ms),  # call I's bases
     }
     # Each kernel's bound at the shapes it was timed at: one stack's
-    # transform; A's scan, B's fused scan and E's ring; A's agree; I's bases.
+    # transform; A's scan, B's fused scan, E's ring and F's fused ring; A's
+    # agree; I's bases.
     bounds = {
         "transform": bound(s0.numel() * s0.element_size()
                            + w0.numel() * 4),
         "hamming": scan_bound(h, w, w0.shape[2], None, 8),
         "consistency": scan_bound(h, w, w0.shape[2], None, 16),
         "band": scan_bound(h, w, w0.shape[2], None, 8),
+        "band_consistency": scan_bound(h, w, w0.shape[2], None, 16),
         "agree": agree_bound(torch, search_disp["A"], s0, s1, nx),
         "bases": bases_bound,
     }

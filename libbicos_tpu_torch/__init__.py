@@ -25,6 +25,7 @@ from .config import (
     Precision,
     TransformMode,
     config_from_reference,
+    invalid_disparity,
     is_invalid,
     max_stacksize,
     required_bits,
@@ -43,6 +44,7 @@ __all__ = [
     "Precision",
     "TransformMode",
     "config_from_reference",
+    "invalid_disparity",
     "is_invalid",
     "match",
     "match_batched",

@@ -120,11 +120,34 @@ INVALID_DISP_INT16 = np.int16(-32768)
 INVALID_DISP_FLOAT = float("nan")
 
 
-def is_invalid(disparity: torch.Tensor) -> torch.Tensor:
-    """Elementwise invalid mask: NaN for float disparities, -32768 for int16."""
-    if disparity.is_floating_point():
-        return torch.isnan(disparity)
-    return disparity == int(INVALID_DISP_INT16)
+def invalid_disparity(dtype) -> float:
+    """The invalid-disparity value of ``dtype`` (a torch or numpy dtype):
+    NaN for floating point, -32768 for int16."""
+    if isinstance(dtype, torch.dtype):
+        if dtype.is_floating_point:
+            return float("nan")
+        if dtype == torch.int16:
+            return int(INVALID_DISP_INT16)
+    else:
+        dt = np.dtype(dtype)
+        if np.issubdtype(dt, np.floating):
+            return float("nan")
+        if dt == np.int16:
+            return int(INVALID_DISP_INT16)
+    raise ValueError(f"unsupported disparity dtype: {dtype}")
+
+
+def is_invalid(disparity):
+    """Elementwise invalid mask: NaN for float disparities, -32768 for int16.
+    A tensor gives a bool tensor, anything else a numpy bool array."""
+    if isinstance(disparity, torch.Tensor):
+        if disparity.is_floating_point():
+            return torch.isnan(disparity)
+        return disparity == int(INVALID_DISP_INT16)
+    arr = np.asarray(disparity)
+    if np.issubdtype(arr.dtype, np.floating):
+        return np.isnan(arr)
+    return arr == INVALID_DISP_INT16
 
 
 def required_bits(n: int, mode: TransformMode) -> int:

@@ -17,48 +17,49 @@
 // other, and so does this one, in one sweep of the cost matrix.
 //
 // Bound on the card: popcount issue rate, as hamming.cu (H*W0*W1*nw
-// popcounts at the full scan), plus per (warp, column) one or two warp
-// reductions (__reduce_min_sync) and one or two shared-memory atomicMin.
-// A ranged scan visits only the columns each warp's pixels can reach.
+// popcounts at the full scan); a ranged scan visits only the columns each
+// warp's tile can reach, about (TILE + dmax - dmin) per tile of TILE left
+// pixels.
 //
-// Design: one block per image row. The block keeps the row's reverse
-// minima as packed int32, cost << S | col0 for first and
-// cost << S | (2^S - 1 - col0) for last (cost <= 256, col0 < 2^S), so a
-// plain minimum keeps the least (or the greatest) left column among the
-// least costs in any order, which makes the result deterministic. Threads
-// loop over tiles of TPB left pixels; the right row's window streams
-// through shared memory as in hamming.cu. For every column, each thread
-// updates its forward (best, first, last) in column order, and each warp
-// folds its 32 candidates for the column with __reduce_min_sync and one
-// atomicMin into the reverse minima. After a __syncthreads() the same
-// block reads the reverse minima at each pixel's forward first argmin.
+// Design: one block per image row; its warps take the row's tiles of TILE
+// left pixels in turn and scan each against the right row with the shared
+// fused fold of cons_scan.cuh (P pixels a thread; reverse minima reduced
+// over the thread's pixels, then over the warp by one transposed butterfly
+// per group of columns, then one shared-memory atomicMin per column and
+// group). The block keeps the row's reverse minima as packed int32,
+// cost << S | col0 for first and cost << S | (2^S - 1 - col0) for last
+// (cost <= 256, col0 < 2^S); each pixel's forward minima are packed the
+// same way with the right column. After a __syncthreads() the same block
+// reads the reverse minima at each pixel's forward first argmin.
 //
 // The reverse minima take 4*W1 bytes (8*W1 with no_dupes) of shared
-// memory, 26.4 KB at W=3300 with no_dupes; rows too wide for the block's
-// shared memory keep them in a global scratch row instead (GLOBAL_REV,
-// global atomicMin; each block owns its row's scratch). A pixel with no
-// in-range column gets first0 = -1, last0 = -2 and rc0 = -1,
-// rc0_last = -2.
+// memory beside the warps' staging buffers, 26.4 KB + 16 KB at W=3300 and
+// nw=4 with no_dupes; rows too wide for the block's shared memory keep them
+// in a global scratch row instead (GLOBAL_REV, global atomicMin; each block
+// owns its row's scratch). A pixel with no in-range column gets
+// first0 = -1, last0 = -2 and rc0 = -1, rc0_last = -2.
 
 #include <climits>
 #include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cons_scan.cuh"
+
 namespace {
 
-constexpr int TPB = 256;
-constexpr int CHUNK = 256;
-constexpr int S = 22;  // bits of the left column in the reverse packing
-constexpr int MASK = (1 << S) - 1;
-constexpr unsigned FULL = 0xffffffffu;
+namespace cons = bicos::cons;
+using cons::TPB;
 
-// Dynamic shared memory of one block: a chunk of the right row, plus the
+constexpr int S = 22;  // bits of a column in the packing
+constexpr int MASK = (1 << S) - 1;
+
+// Dynamic shared memory of one block: the warps' staging buffers, plus the
 // row's reverse minima unless they live in the global scratch.
 size_t smem_bytes(int nw, int wid1, bool no_dupes, bool global_rev) {
-  const size_t tile = sizeof(uint32_t) * CHUNK * nw;
-  return global_rev ? tile
-                    : tile + sizeof(int32_t) * (no_dupes ? 2 : 1) * wid1;
+  const size_t stage = cons::stage_bytes(nw);
+  return global_rev ? stage
+                    : stage + sizeof(int32_t) * (no_dupes ? 2 : 1) * wid1;
 }
 
 struct Args {
@@ -73,95 +74,47 @@ struct Args {
 };
 
 template <int NW, bool NO_DUPES, bool GLOBAL_REV>
-__global__ void __launch_bounds__(TPB) consistency_kernel(Args p) {
-  extern __shared__ int32_t smem[];
+__global__ void __launch_bounds__(TPB, cons::min_blocks(NW, NO_DUPES))
+    consistency_kernel(Args p) {
+  extern __shared__ __align__(16) uint32_t smem[];
   const int64_t row = blockIdx.x;
   const int wid0 = p.wid0, wid1 = p.wid1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t* stage = smem + warp * cons::STAGE * NW;
   int32_t* rf;
-  int32_t* rl;
-  uint32_t* tile;
-  if (GLOBAL_REV) {
+  if (GLOBAL_REV)
     rf = p.scratch + row * 2 * wid1;
-    rl = rf + wid1;
-    tile = reinterpret_cast<uint32_t*>(smem);
-  } else {
-    rf = smem;
-    rl = smem + wid1;
-    tile = reinterpret_cast<uint32_t*>(smem + (NO_DUPES ? 2 : 1) * wid1);
-  }
+  else
+    rf = reinterpret_cast<int32_t*>(smem + cons::WARPS * cons::STAGE * NW);
+  int32_t* rl = rf + wid1;
   for (int i = threadIdx.x; i < wid1; i += TPB) {
     rf[i] = INT_MAX;
     if (NO_DUPES) rl[i] = INT_MAX;
   }
+  __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const uint32_t* right = p.words1 + row * wid1 * NW;
-  for (int t0 = 0; t0 < wid0; t0 += TPB) {
-    const int c0 = t0 + threadIdx.x;
-    const bool live = c0 < wid0;
-    uint32_t a[NW];
-    const uint32_t* left = p.words0 + (row * wid0 + c0) * NW;
+  cons::Row r{p.words0 + row * wid0 * NW, p.words1 + row * wid1 * NW,
+              rf, rl, wid0, wid1,
+              p.has_range ? p.dmin : -wid1, p.has_range ? p.dmax : wid0,
+              0, MASK, 0, MASK};
+  constexpr int TILE = cons::TILE, P = cons::P;
+  const int tiles = (wid0 + TILE - 1) / TILE;
+  for (int t = warp; t < tiles; t += cons::WARPS) {
+    int32_t f[P], l[P];
+    cons::scan_tile<NW, S, NO_DUPES>(r, stage, t * TILE, f, l);
 #pragma unroll
-    for (int k = 0; k < NW; ++k) a[k] = live ? left[k] : 0u;
-
-    // Column windows [lo, hi): the block's tile, the warp's 32 pixels
-    // (warp-uniform, so every lane takes part in the reductions) and the
-    // thread's own pixel.
-    const int tend = min(t0 + TPB, wid0);
-    const int w0c = t0 + (threadIdx.x & ~31);
-    const int wend = min(w0c + 32, wid0);
-    int blo = 0, bhi = wid1, wlo = 0, whi = wid1;
-    int mylo = 0, myhi = live ? wid1 : 0;
-    if (p.has_range) {
-      blo = max(0, t0 - p.dmax);
-      bhi = min(wid1, tend - p.dmin);
-      wlo = max(0, w0c - p.dmax);
-      whi = min(wid1, wend - p.dmin);
-      mylo = max(0, c0 - p.dmax);
-      myhi = live ? min(wid1, c0 - p.dmin + 1) : 0;
-    }
-    if (wend <= w0c) whi = 0;  // a warp past the row's end
-    const unsigned span =
-        myhi > mylo ? static_cast<unsigned>(myhi - mylo) : 0u;
-
-    int best = INT_MAX, bf = -1, bl = -2;
-    for (int base = blo; base < bhi; base += CHUNK) {
-      const int cols = min(CHUNK, bhi - base);
-      __syncthreads();
-      for (int i = threadIdx.x; i < cols * NW; i += TPB)
-        tile[i] = right[static_cast<int64_t>(base) * NW + i];
-      __syncthreads();
-      const int jlo = max(0, wlo - base);
-      const int jhi = min(cols, whi - base);
-      for (int j = jlo; j < jhi; ++j) {
-        int cost = 0;
-#pragma unroll
-        for (int k = 0; k < NW; ++k) cost += __popc(a[k] ^ tile[j * NW + k]);
-        const int col = base + j;
-        const bool ok = static_cast<unsigned>(col - mylo) < span;
-        if (ok && cost < best) {
-          best = cost;
-          bf = col;
-        }
-        if (NO_DUPES && ok && cost <= best) bl = col;
-        const int packed = cost << S;
-        const int mf = __reduce_min_sync(FULL, ok ? packed | c0 : INT_MAX);
-        if (lane == 0 && mf != INT_MAX) atomicMin(rf + col, mf);
-        if (NO_DUPES) {
-          const int ml =
-              __reduce_min_sync(FULL, ok ? packed | (MASK - c0) : INT_MAX);
-          if (lane == 0 && ml != INT_MAX) atomicMin(rl + col, ml);
-        }
-      }
-    }
-    if (live) {
-      p.first[row * wid0 + c0] = bf;
-      if (NO_DUPES) p.last[row * wid0 + c0] = bl;
+    for (int q = 0; q < P; ++q) {
+      const int c0 = t * TILE + 32 * q + lane;
+      if (c0 >= wid0) continue;
+      const bool none = f[q] >= cons::none_lim<S>();
+      p.first[row * wid0 + c0] = none ? -1 : f[q] & MASK;
+      if (NO_DUPES) p.last[row * wid0 + c0] = none ? -2 : MASK - (l[q] & MASK);
     }
   }
   __syncthreads();
 
-  // The lookup: every thread reads back the forward argmins it wrote.
+  // The lookup: every thread reads back forward argmins written by the
+  // block.
   for (int c0 = threadIdx.x; c0 < wid0; c0 += TPB) {
     const int64_t o = row * wid0 + c0;
     const int f = p.first[o];

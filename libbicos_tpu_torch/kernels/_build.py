@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"transform": 0, "hamming": 0, "consistency": 0, "agree": 0,
-            "band": 0, "bases": 0}
+            "band": 0, "band_consistency": 0, "bases": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +67,10 @@ _SIGNATURES = {
     # has_range, dmin, dmax, stream
     "bicos_row_minima_band": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P),
+    # words0, words1, mf, ml, rf, rl, h, band0, band, nw, off0, off1, w,
+    # rstride, has_range, dmin, dmax, stream
+    "bicos_consistency_band": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

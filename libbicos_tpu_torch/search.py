@@ -194,6 +194,41 @@ def row_minima_band_torch_words(
                  pair_budget=pair_budget)
 
 
+def row_minima_consistency_band_torch_words(
+    words0: torch.Tensor, words1: torch.Tensor, off0: int, off1: int,
+    mf: torch.Tensor, ml: Optional[torch.Tensor], rf: torch.Tensor,
+    rl: Optional[torch.Tensor], *, w_total: int, drange=None,
+    pair_budget: int = PAIR_BUDGET,
+) -> None:
+    """Plain fused Consistency ring step, in place: a held left band ``(H,
+    W0b, nw)`` at global column ``off0`` against one visiting right band
+    ``(H, band, nw)`` at global column ``off1``, both directions from the
+    same pairs. Forward, into the left band's ``(H, W0b)`` minima: ``mf``
+    (``cost * PACK_K + gcol1``) and ``ml`` (``cost * PACK_K + (w_total - 1
+    - gcol1)``). Reverse, into the ``(H, >= w_total)`` minima indexed by
+    the global right column: ``rf`` (``cost * PACK_K + gcol0``) and ``rl``
+    (``cost * PACK_K + (w_total - 1 - gcol0)``). ``ml`` and ``rl`` are None
+    without last. Left and right columns at or past ``w_total`` (ring
+    padding) and pairs outside ``drange`` (on the global ``col0 - col1``;
+    reflected for the reverse side, the same pairs) are skipped. Start
+    every accumulator from ``BIG``; decode with :func:`decode_minima`. The
+    plain version beside ``kernels/band.py``."""
+    if w_total > PACK_K:
+        raise ValueError(f"image width > {PACK_K} not supported")
+    wid0 = max(0, min(words0.shape[1], w_total - off0))
+    wid1 = max(0, min(words1.shape[1], w_total - off1))
+    if wid0 == 0 or wid1 == 0:
+        return
+    a, b = words0[:, :wid0], words1[:, :wid1]
+    _fold_packed(a, b, mf[:, :wid0], None if ml is None else ml[:, :wid0],
+                 off0=off0, off1=off1, w1_total=w_total, pack_k=PACK_K,
+                 drange=drange, pair_budget=pair_budget)
+    cols = slice(off1, off1 + wid1)
+    _fold_packed(b, a, rf[:, cols], None if rl is None else rl[:, cols],
+                 off0=off1, off1=off0, w1_total=w_total, pack_k=PACK_K,
+                 drange=reflect_range(drange), pair_budget=pair_budget)
+
+
 def _lookup_reverse(first1, last1, first0):
     """Reverse minima read at each left pixel's forward argmin: ``(rc0,
     rc0_last-or-None)``; ``-1 / -2`` where the forward side found no

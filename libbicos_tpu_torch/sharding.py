@@ -10,8 +10,12 @@ The counterpart of ``libbicos_tpu.sharding``:
   right descriptor bands travel a ring; each visit folds into running packed
   ``cost * PACK_K + col`` minima (``kernels/band.py``), so the reduction
   across bands is a plain elementwise minimum and NoDuplicates ties keep
-  first-occurrence order exactly. Visits that no pair of a bounded
-  disparity range can reach are skipped (:func:`wband_ring_visits`).
+  first-occurrence order exactly. Consistency runs the same one ring with
+  the fused step, which also folds every visit's pairs into the reverse
+  minima of the right columns (indexed by the global column, one
+  accumulator per process, minimum-reduced across the mesh by
+  ``mesh.reduce_min``). Visits that no pair of a bounded disparity range
+  can reach are skipped (:func:`wband_ring_visits`).
 
 A mesh (:func:`make_mesh`) is one of two transports behind one interface:
 
@@ -46,8 +50,8 @@ from .search import BIG, PACK_K
 
 class LocalMesh:
     """``size`` bands held by this process on ``device`` (None: the current
-    CUDA device); ``shift`` and ``all_gather`` move no data between
-    processes."""
+    CUDA device); ``shift``, ``all_gather`` and ``reduce_min`` move no data
+    between processes."""
 
     def __init__(self, size: int, device=None):
         if size < 1:
@@ -64,6 +68,12 @@ class LocalMesh:
     def all_gather(self, tensors: Sequence[torch.Tensor], dim: int):
         """Every band's tensor, in band order, concatenated along ``dim``."""
         return torch.cat(list(tensors), dim)
+
+    def reduce_min(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The elementwise minimum over the processes' ``tensor``: every
+        held band folds into this process's one tensor, so it is that
+        tensor."""
+        return tensor
 
 
 class DistMesh:
@@ -105,6 +115,12 @@ class DistMesh:
         parts = [torch.empty_like(wire) for _ in range(self.size)]
         self._dist.all_gather(parts, wire)
         return torch.cat(parts, dim).to(x.dtype)
+
+    def reduce_min(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The elementwise minimum over every rank's ``tensor`` (int32 or
+        wider; gloo and NCCL both take MIN), in place."""
+        self._dist.all_reduce(tensor, op=self._dist.ReduceOp.MIN)
+        return tensor
 
 
 def make_mesh(n_devices: Optional[int] = None, *, virtual: bool = False,
@@ -248,6 +264,43 @@ def _ring_minima(words0, words1, need_last: bool, mesh, band: int, w: int,
     return [_search.decode_minima(f, l, w) for f, l in zip(mf, ml)]
 
 
+def _ring_consistency(words0, words1, need_last: bool, mesh, band: int,
+                      w: int, backend: str, drange=None):
+    """One ring of the fused Consistency step over the held bands (``band``
+    columns each, ``w`` real columns in all): per held left band its
+    forward ``(first, last-or-None)``, and the reverse ``(first1,
+    last1-or-None)`` of every right column, ``(H, w)``, reduced over the
+    mesh. ``first = -1, last = -2`` where no pair is in ``drange``."""
+    if backend == "cuda":
+        from .kernels.band import row_minima_consistency_band as fold
+    else:
+        fold = _search.row_minima_consistency_band_torch_words
+    band0 = words0[0].shape[1]
+    h = words0[0].shape[0]
+    dev = words0[0].device
+    mf = [torch.full(x.shape[:2], BIG, dtype=torch.int32, device=dev)
+          for x in words0]
+    ml = [torch.full_like(m, BIG) if need_last else None for m in mf]
+    # The reverse minima of every right column, first (and last) stacked so
+    # that one collective reduces both.
+    rev = torch.full((2 if need_last else 1, h, mesh.size * band), BIG,
+                     dtype=torch.int32, device=dev)
+    rl = rev[1] if need_last else None
+
+    def visit(j, src, cur):
+        fold(words0[j], cur, mesh.ranks[j] * band0, src * band, mf[j], ml[j],
+             rev[0], rl, w_total=w, drange=drange)
+
+    _ring_fold(mesh, wband_ring_visits(mesh.size, band, drange), words1,
+               visit)
+    rev = mesh.reduce_min(rev)
+    _, first1, last1 = _search.decode_minima(
+        rev[0], rev[1] if need_last else None, w)
+    fwd = [_search.decode_minima(f, l, w)[1:] for f, l in zip(mf, ml)]
+    return fwd, (first1[:, :w],
+                 None if last1 is None else last1[:, :w])
+
+
 def row_minima_wband(words0, words1, need_last: bool, *, mesh,
                      backend: str = "auto", drange=None):
     """W-banded scan minima over a ring: ``(cost, first, last-or-None)``,
@@ -274,9 +327,10 @@ def match_sharded_w(stack0, stack1, cfg: Config = Config(), *, mesh=None,
                     corrmap: bool = False, backend: str = "auto"):
     """W-banded ``match`` for very wide images: each band transforms its
     own columns, the scan runs as a ring of right descriptor bands
-    (:func:`row_minima_wband`'s engine; Consistency adds a second ring with
-    the roles swapped and the range reflected, and gathers the reverse
-    argmins for the lookup), and agree checks each left band against the
+    (:func:`row_minima_wband`'s engine; Consistency runs the same one ring
+    with the fused step, which also folds the reverse minima of the right
+    columns, reduces them over the mesh and reads them at every left
+    pixel's best column), and agree checks each left band against the
     whole right row. The results equal :func:`pipeline.match`'s exactly.
     Same arguments as ``match``, plus ``mesh``."""
     mesh = make_mesh() if mesh is None else mesh
@@ -299,23 +353,17 @@ def match_sharded_w(stack0, stack1, cfg: Config = Config(), *, mesh=None,
     offs = [r * band for r in mesh.ranks]
     variant = cfg.variant
     drange = cfg.disparity_range
-    nodupes = isinstance(variant, NoDuplicates) or variant.no_dupes
-    fwd = _ring_minima(words0, words1, nodupes, mesh, band, w, backend,
-                       drange)
     if isinstance(variant, NoDuplicates):
+        fwd = _ring_minima(words0, words1, True, mesh, band, w, backend,
+                           drange)
         disps = [_search._finish_nodupes(f, l, band, off)
                  for (_, f, l), off in zip(fwd, offs)]
     else:
-        rev = _ring_minima(words1, words0, nodupes, mesh, band, w, backend,
-                           _search.reflect_range(drange))
-        # The reverse argmins live with the band owning each right column:
-        # gather them for the lookup at every left pixel's best column.
-        f1g = mesh.all_gather([f for _, f, _ in rev], 1)[:, :w]
-        l1g = (mesh.all_gather([l for _, _, l in rev], 1)[:, :w]
-               if nodupes else None)
+        fwd, (first1, last1) = _ring_consistency(
+            words0, words1, variant.no_dupes, mesh, band, w, backend, drange)
         disps = [_search._finish_gathered(
-            variant, f, l, *_search._lookup_reverse(f1g, l1g, f), off)
-            for (_, f, l), off in zip(fwd, offs)]
+            variant, f, l, *_search._lookup_reverse(first1, last1, f), off)
+            for (f, l), off in zip(fwd, offs)]
 
     corrs = None
     if cfg.nxcorr_threshold is not None:

@@ -127,6 +127,55 @@ def test_invalid_sentinels_and_mask():
     np.testing.assert_array_equal(tc.is_invalid(df).numpy(), wantf)
 
 
+@pytest.mark.parametrize("np_dtype, torch_dtype", [
+    (np.float32, torch.float32), (np.float64, torch.float64),
+    (np.float16, torch.float16), (np.int16, torch.int16),
+])
+def test_invalid_disparity_matches(np_dtype, torch_dtype):
+    want = jc.invalid_disparity(np_dtype)
+    for dt in (np_dtype, np.dtype(np_dtype), np.dtype(np_dtype).name,
+               torch_dtype):
+        got = tc.invalid_disparity(dt)
+        assert type(got) is type(want)
+        assert (np.isnan(got) and np.isnan(want)) or got == want
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint8, torch.int32,
+                                   torch.bool])
+def test_invalid_disparity_rejects_other_dtypes(dtype):
+    if not isinstance(dtype, torch.dtype):
+        with pytest.raises(ValueError, match="unsupported"):
+            jc.invalid_disparity(dtype)
+    with pytest.raises(ValueError, match="unsupported"):
+        tc.invalid_disparity(dtype)
+
+
+@pytest.mark.parametrize("values, dtype", [
+    ([[-32768, 0, 5], [7, -32768, -1]], np.int16),
+    ([[float("nan"), 0.0, 1.5], [-2.5, float("nan"), 3.0]], np.float32),
+    ([[-32768, 0, 32767]], np.int32),
+])
+def test_is_invalid_numpy_and_tensors_match(values, dtype):
+    arr = np.asarray(values, dtype)
+    want = np.asarray(jc.is_invalid(arr))
+    got = tc.is_invalid(arr)
+    assert isinstance(got, np.ndarray) and got.dtype == np.bool_
+    np.testing.assert_array_equal(got, want)
+    got_t = tc.is_invalid(torch.from_numpy(arr))
+    assert isinstance(got_t, torch.Tensor) and got_t.dtype == torch.bool
+    np.testing.assert_array_equal(got_t.numpy(), want)
+    # A nested list is taken as an array, as by the JAX package.
+    np.testing.assert_array_equal(tc.is_invalid(arr.tolist()),
+                                  np.asarray(jc.is_invalid(arr.tolist())))
+
+
+def test_both_packages_export_invalid_disparity():
+    assert "invalid_disparity" in jb.__all__
+    assert "invalid_disparity" in tb.__all__
+    assert tb.invalid_disparity is tc.invalid_disparity
+    assert set(tb.__all__) <= set(jb.__all__) | {"config_from_reference"}
+
+
 def test_import_leaves_jax_out():
     """The port (every module, kernels included) must import without jax:
     the machine with the card has none."""

@@ -94,7 +94,8 @@ def test_match_cuda_launches_every_kernel_and_matches_plain(dev):
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
     counts = _build.launch_counts()
     assert counts == {"transform": 2, "hamming": 1, "consistency": 0,
-                      "agree": 1, "band": 0, "bases": 0}
+                      "agree": 1, "band": 0, "band_consistency": 0,
+                      "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
     v = ~torch.isnan(want_d)
@@ -189,6 +190,27 @@ def test_consistency_kernel_ties(dev, no_dupes):
         out, ts.row_minima_consistency_torch_words(a, b, no_dupes), no_dupes)
 
 
+@pytest.mark.parametrize("no_dupes", [True, False])
+@pytest.mark.parametrize("drange", [None, (0, 511), (-40, 300), (3, 3)])
+@pytest.mark.parametrize("w0, w1", [(1061, 1100), (127, 129), (129, 127),
+                                    (65, 63), (2048, 2048), (1, 700),
+                                    (700, 1)])
+def test_consistency_kernel_tile_edges(dev, w0, w1, drange, no_dupes):
+    """Widths around the warp tile (TILE = 64 left pixels, P = 2 a thread)
+    and the block's P x TPB = 512 pixels: ragged last tiles (1061 = 2 x 512
+    + 37), rows that end one pixel into a tile (65, 129), exact multiples,
+    one-pixel rows; with ties from a small alphabet of descriptors."""
+    g = np.random.default_rng(w0 * 7 + w1)
+    pool = g.integers(-2**31, 2**31, size=(24, 4)).astype(np.int32)
+    a = torch.from_numpy(pool[g.integers(0, 24, (3, w0))]).to(dev)
+    b = torch.from_numpy(pool[g.integers(0, 24, (3, w1))]).to(dev)
+    out = row_minima_consistency_words(a, b, no_dupes=no_dupes,
+                                       drange=drange)
+    _assert_cons_equal(
+        out, ts.row_minima_consistency_torch_words(a, b, no_dupes, drange),
+        no_dupes)
+
+
 @pytest.mark.parametrize("drange", [None, (0, 511), (-40000, 40000),
                                     (50000, 60000)])
 def test_consistency_kernel_ultrawide(dev, drange):
@@ -210,16 +232,16 @@ def test_consistency_kernel_ultrawide(dev, drange):
 @pytest.mark.parametrize("variant, drange, expect", [
     (tb.Consistency(1, True), None,
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0, "bases": 0}),
+      "band": 0, "band_consistency": 0, "bases": 0}),
     (tb.NoDuplicates(), (0, 63),
      {"transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-      "band": 0, "bases": 0}),
+      "band": 0, "band_consistency": 0, "bases": 0}),
     (tb.Consistency(3, True), (0, 63),
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0, "bases": 0}),
+      "band": 0, "band_consistency": 0, "bases": 0}),
     (tb.Consistency(2, False), (-10, 40),
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0, "bases": 0}),
+      "band": 0, "band_consistency": 0, "bases": 0}),
 ])
 def test_match_cuda_variants_match_plain(dev, variant, drange, expect):
     s0, s1 = _pair(dev, 33, 16, 400)
@@ -296,6 +318,92 @@ def test_band_kernel_ties_and_ultrawide(dev):
         assert torch.equal(first, pf) and torch.equal(last, pl)
 
 
+def _cons_ring(a, b, nbands, need_last, drange):
+    """Every (band, visit) of a ring of the fused Consistency step over
+    ``nbands`` column bands of equal-width rows, kernel and plain step from
+    the same accumulators, equal after every step; returns the kernel's
+    forward ``(mf, ml)`` per band and reverse ``(rf, rl)``."""
+    from libbicos_tpu_torch.kernels.band import row_minima_consistency_band
+
+    w = a.shape[1]
+    band = -(-w // nbands)
+    a = torch.nn.functional.pad(a, (0, 0, 0, band * nbands - w))
+    b = torch.nn.functional.pad(b, (0, 0, 0, band * nbands - w))
+    h = a.shape[0]
+
+    def full(shape):
+        return torch.full(shape, ts.BIG, dtype=torch.int32, device=a.device)
+
+    got = [[full((h, band)) for _ in range(nbands)] for _ in range(2)]
+    want = [[full((h, band)) for _ in range(nbands)] for _ in range(2)]
+    rev, rev_want = full((2, h, nbands * band)), full((2, h, nbands * band))
+    for i in range(nbands):
+        for j in range(nbands):
+            src = (j + i) % nbands
+            a_j = a[:, j * band:(j + 1) * band].contiguous()
+            b_s = b[:, src * band:(src + 1) * band].contiguous()
+            for fold, (mf, ml), r in (
+                    (row_minima_consistency_band,
+                     (got[0][j], got[1][j]), rev),
+                    (ts.row_minima_consistency_band_torch_words,
+                     (want[0][j], want[1][j]), rev_want)):
+                fold(a_j, b_s, j * band, src * band, mf,
+                     ml if need_last else None, r[0],
+                     r[1] if need_last else None, w_total=w, drange=drange)
+            assert torch.equal(got[0][j], want[0][j]), (j, src)
+            assert torch.equal(got[1][j], want[1][j]), (j, src)
+            assert torch.equal(rev, rev_want), (j, src)
+    return got, rev
+
+
+@pytest.mark.parametrize("need_last", [True, False])
+@pytest.mark.parametrize("drange", [None, (0, 511), (-5, 20), (5000, 6000)])
+@pytest.mark.parametrize("n, mode, w, nbands", [
+    (33, "LIMITED", 1100, 4), (3, "LIMITED", 700, 3), (16, "FULL", 513, 4),
+    (65, "LIMITED", 300, 2), (9, "LIMITED", 1001, 1),
+])
+def test_consistency_band_kernel_equal(dev, n, mode, w, nbands, drange,
+                                       need_last):
+    """The fused Consistency ring step against its plain version at every
+    ring step (ragged bands included), and the ring's decoded forward and
+    reverse argmins against the Consistency scan's."""
+    a, b = _words_pair(dev, n, mode, 5, w)
+    (mf, ml), rev = _cons_ring(a, b, nbands, need_last, drange)
+    first = torch.cat([ts.decode_minima(f, None, w)[1] for f in mf],
+                      1)[:, :w]
+    _, first1, last1 = ts.decode_minima(rev[0], rev[1], w)
+    pf, pl, prc, prcl = ts.row_minima_consistency_torch_words(a, b, True,
+                                                              drange)
+    assert torch.equal(first, pf)
+    rc0, rc0_last = ts._lookup_reverse(first1[:, :w], last1[:, :w], first)
+    assert torch.equal(rc0, prc)
+    if need_last:
+        assert torch.equal(rc0_last, prcl)
+
+
+def test_consistency_band_kernel_ties_and_ultrawide(dev):
+    """Duplicate columns in different bands on both sides, on 2 x 20000
+    rows over 4 bands, ranged and not."""
+    b = _random_words(dev, 2, 20000, 1, 3)
+    a = torch.roll(b, 7, dims=1).contiguous()
+    b[:, 19000:19010] = b[:, 100:110]
+    a[:, 15000:15010] = a[:, 300:310]
+    for drange in (None, (-300, 300)):
+        for need_last in (True, False):
+            _cons_ring(a, b, 4, need_last, drange)
+
+
+def test_consistency_band_kernel_global_reverse(dev):
+    """A one-band ring at w = 32767 (the widest the ring packs): the
+    visiting band's reverse minima (262 KB) exceed a block's shared memory,
+    so the step folds them into the accumulators with global atomics."""
+    b = _random_words(dev, 1, 32767, 1, 5)
+    a = torch.roll(b, 11, dims=1).contiguous()
+    b[:, 30000:30004] = b[:, 10:14]
+    for drange in (None, (0, 511)):
+        _cons_ring(a, b, 1, True, drange)
+
+
 @pytest.mark.parametrize("step, minvar", [(0.1, 66.0), (None, None),
                                           (0.25, 18.0)])
 def test_agree_kernel_band_col_offset(dev, step, minvar):
@@ -325,14 +433,15 @@ def test_agree_kernel_band_col_offset(dev, step, minvar):
 
 
 @pytest.mark.parametrize("variant, drange, band_launches", [
-    (tb.NoDuplicates(), None, 9),
-    (tb.Consistency(1, True), None, 18),
-    (tb.NoDuplicates(), (0, 63), 6),
+    (tb.NoDuplicates(), None, {"band": 9, "band_consistency": 0}),
+    (tb.Consistency(1, True), None, {"band": 0, "band_consistency": 9}),
+    (tb.NoDuplicates(), (0, 63), {"band": 6, "band_consistency": 0}),
 ])
 def test_match_sharded_w_on_one_card_equals_match(dev, variant, drange,
                                                   band_launches):
     """W-banded matching over 3 bands on one card (a virtual mesh) equals
-    the single-card call exactly, corrmap included."""
+    the single-card call exactly, corrmap included. Consistency runs one
+    ring of the fused step: 3 x 3 launches."""
     from libbicos_tpu_torch import sharding
 
     s0, s1 = _pair(dev, 33, 16, 400)
@@ -346,7 +455,7 @@ def test_match_sharded_w_on_one_card_equals_match(dev, variant, drange,
                                             corrmap=True, backend="cuda")
     assert _build.launch_counts() == {
         "transform": 6, "hamming": 0, "consistency": 0, "agree": 3,
-        "band": band_launches, "bases": 0}
+        **band_launches, "bases": 0}
     for got, want in ((got_d, want_d), (got_c, want_c)):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
@@ -514,7 +623,7 @@ def test_match_cuda_dynwin_equals_window_off(dev, monkeypatch, variant,
     got = tb.match(s0, s1, cfg, corrmap=True)
     assert _build.launch_counts() == {
         "transform": 2, "hamming": 0, "consistency": 0, "agree": 1,
-        "band": 0, "bases": 1, scan: 1}
+        "band": 0, "band_consistency": 0, "bases": 1, scan: 1}
     for a, b in zip(got, want):
         _assert_bitwise(a, b)
 
@@ -527,7 +636,7 @@ def test_match_cuda_double_launches_and_matches_plain(dev):
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True)
     assert _build.launch_counts() == {
         "transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-        "band": 0, "bases": 0}
+        "band": 0, "band_consistency": 0, "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     _assert_plain_bar(got_d, got_c, want_d, want_c)
 

@@ -1,7 +1,8 @@
 """The sharded paths over ``torch.distributed`` (``DistMesh``, gloo on the
 CPU, one band per process) against the same paths on a ``LocalMesh`` in
 this process: equal disparities (same NaN mask), corrmaps and argmins, on
-every rank, for 2 and 4 processes.
+every rank, for 2 and 4 processes; Consistency's reverse minima travel by
+``mesh.reduce_min`` (``all_reduce`` MIN), also checked on its own.
 
 The file is its own worker, and imports only torch, numpy and the port::
 
@@ -44,6 +45,9 @@ W_CASES = {
     "w_cons_range": tb.Config(nxcorr_threshold=0.6, subpixel_step=0.25,
                               variant=tb.Consistency(2, False),
                               disparity_range=(-6, 9)),
+    "w_cons_nodupes_range": tb.Config(nxcorr_threshold=0.5,
+                                      variant=tb.Consistency(1, True),
+                                      disparity_range=(0, 15)),
 }
 H_CASES = {
     "h_nodup": tb.Config(nxcorr_threshold=0.5, subpixel_step=0.1),
@@ -63,6 +67,14 @@ def run_cases(s0, s1, mesh) -> dict:
             disp, corr = fn(s0, s1, cfg, mesh=mesh, corrmap=True)
             out[f"{name}.disp"] = disp.cpu().numpy()
             out[f"{name}.corr"] = corr.cpu().numpy()
+    # reduce_min: every band's int32 contribution, minimum-reduced. A
+    # LocalMesh's one accumulator already holds every band's fold.
+    parts = [torch.from_numpy(((np.arange(24, dtype=np.int64).reshape(2, 3, 4)
+                                * (r + 3)) % 11 - r).astype(np.int32))
+             for r in range(mesh.size)]
+    mine = (torch.stack(parts).amin(0) if isinstance(mesh, tsh.LocalMesh)
+            else parts[mesh.ranks[0]])
+    out["reduce_min"] = mesh.reduce_min(mine.to(mesh.device)).cpu().numpy()
     mode = tb.TransformMode.LIMITED
     w0, w1 = (descriptor_words(torch.from_numpy(s).to(mesh.device), mode)
               for s in (s0, s1))
