@@ -6,9 +6,9 @@
 1. Prints the card (name, power limit), the torch and CUDA versions, and
    builds the CUDA kernels from ``libbicos_tpu_torch/csrc``; prints the
    registers, stack and spills (``-Xptxas -v``) of the agree, transform,
-   Consistency scan and fused ring step kernels (one of them that spills
-   fails the run) and the agree and transform kernels' SASS opcode counts,
-   whole and per sweep loop (``cuobjdump -sass``).
+   Consistency scan, fused ring step and bases kernels (one of them that
+   spills fails the run) and the agree and transform kernels' SASS opcode
+   counts, whole and per sweep loop (``cuobjdump -sass``).
 2. Compares each kernel with its plain PyTorch version on the card, at a
    full-width row band of the headline input (n=33, 64 x 3300, u8, LIMITED)
    and at a ragged small shape (n=9, 7 x 1001, u16, FULL): the scan
@@ -55,6 +55,22 @@
    corrmaps. The ring's band kernel is compared with its plain fold at E's
    and G's shapes, the fused step with its plain version at F's, and each
    call's kernels are timed at its shapes beside the call.
+
+5. Runs the user surfaces on the card: the CLI (``python -m
+   libbicos_tpu_torch.cli``, a process of its own) on the headline input
+   written as 8-bit PNGs, with A's configuration (``-t 0.96 --limited -v
+   2.0 -s 0.1 --corrmap``), whose disparity TIFF must equal call A's bit
+   for bit and whose corrmap TIFF must lie within 4e-6 of it; two small
+   CLI cases (``-q`` with a Q matrix, ``-m 1 --no-dupes``), each equal to
+   its in-process ``match``; ``profiling.stage_timings`` at A;
+   ``pybicos_compat.match`` equal to ``match``; call A under
+   ``BICOS_DEBUG=1``, whose checks must pass.
+
+The bases and transform kernels' times are device times: ``LAUNCHES``
+launches behind one event pair (the bases replayed from a CUDA graph, so
+that the wrapper's host work does not sit between them), warm and with the
+L2 flushed, confirmed by ``torch.profiler``; ``call_ms`` is one launch
+between an event pair, host work included.
 
 The bars: descriptor words bit-identical; first/last argmins and reverse
 argmins equal, sentinels included; agree corrmaps with the same NaN mask
@@ -156,6 +172,78 @@ def time_ms(torch, fn, reps: int = REPS, warm: int = 1) -> float:
     return statistics.median(plain_timed(torch, fn)[1] for _ in range(reps))
 
 
+FLUSH_BYTES = 128 << 20  # written between launches: > the card's 50 MB L2
+LAUNCHES = 100  # launches behind one event pair for a device time
+
+
+def profiled_ms(torch, fn, kernel: str) -> tuple:
+    """``(mean ms, count)`` of the device time that ``torch.profiler``
+    records for the kernels whose name holds ``kernel`` while ``fn()``
+    runs; ``(None, 0)`` where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if kernel in e.key and t > 0:
+            total += t
+            count += e.count
+    return (total / 1e3 / count, count) if count else (None, 0)
+
+
+def device_times(torch, fn, kernel: str, graph: bool) -> dict:
+    """One launch's device time of ``fn()`` (which launches the kernels
+    named ``kernel``), in ms:
+
+    * ``ms``: ``LAUNCHES`` launches back to back between one event pair,
+      over the count; with ``graph`` they are replayed from a CUDA graph, so
+      that no host work sits between them (for a kernel of microseconds the
+      wrapper's host work is longer than the kernel);
+    * ``cold_ms``: the same with the L2 flushed (a ``FLUSH_BYTES`` write)
+      before each launch, less the flushes alone;
+    * ``profiler_ms``, ``profiler_cold_ms``: ``torch.profiler``'s device
+      time of the kernel, mean of ``LAUNCHES`` plain launches, warm and
+      flushed;
+    * ``call_ms``: one launch between an event pair, median of ``REPS``.
+    """
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def run(with_flush, with_fn):
+        for _ in range(LAUNCHES):
+            if with_flush:
+                flush.fill_(7)
+            if with_fn:
+                fn()
+
+    keys = ((False, True), (True, True), (True, False))
+    if graph:
+        graphs = {}
+        for key in keys:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, capture_error_mode="relaxed"):
+                run(*key)
+            graphs[key] = g.replay
+    else:
+        graphs = {key: (lambda key=key: run(*key)) for key in keys}
+    span = {key: time_ms(torch, graphs[key]) for key in keys}
+    out = {
+        "ms": span[keys[0]] / LAUNCHES,
+        "cold_ms": (span[keys[1]] - span[keys[2]]) / LAUNCHES,
+        "call_ms": time_ms(torch, fn),
+    }
+    out["profiler_ms"] = profiled_ms(torch, lambda: run(False, True),
+                                     kernel)[0]
+    out["profiler_cold_ms"] = profiled_ms(torch, lambda: run(True, True),
+                                          kernel)[0]
+    return out
+
+
 def bound(nbytes: float, **ops) -> tuple:
     """``(ms, "bytes" | "operations")``: the larger of ``nbytes`` over the
     memory rate and each ``ops[kind]`` over ``PEAK[kind]``."""
@@ -216,7 +304,9 @@ _SCAN_NAME = re.compile(
     r"\d(band_consistency_kernel|consistency_kernel)I((?:L[ib]\d+E)+)E")
 _TYPE_LETTERS = {"f": "float", "d": "double", "h": "u8", "t": "u16"}
 # The kernels whose registers, stack and spills build_report prints.
-REPORTED = ("agree", "transform", "consistency", "band_consistency")
+REPORTED = ("agree", "transform", "consistency", "band_consistency",
+            "bases")
+_BASES_NAME = re.compile(r"\d(bases_vec_kernel|bases_kernel)E")
 
 
 def short_name(mangled: str) -> str:
@@ -231,7 +321,8 @@ def short_name(mangled: str) -> str:
     if m:
         args = re.findall(r"L[ib](\d+)E", m[2])
         return f"{m[1]}<{','.join(args)}>"
-    return mangled
+    m = _BASES_NAME.search(mangled)
+    return m[1] if m else mangled
 
 
 def ptxas_report(log: str) -> dict:
@@ -311,16 +402,16 @@ def sass_report(lib: Path) -> dict:
 
 def build_report(lib: Path) -> None:
     """Prints the registers and spills (the ``-Xptxas -v`` log beside
-    ``lib``) of the agree, transform, Consistency scan and fused ring step
-    kernels, and the agree and transform kernels' SASS opcode counts; fails
-    if one of those kernels spills."""
+    ``lib``) of the agree, transform, Consistency scan, fused ring step and
+    bases kernels, and the agree and transform kernels' SASS opcode counts;
+    fails if one of those kernels spills."""
     log = lib.with_suffix(".log")
     ptxas = ptxas_report(log.read_text()) if log.exists() else {}
     mine = {k: v for k, v in ptxas.items() if k.startswith(REPORTED)}
     if not any(k.startswith("band_consistency") for k in mine):
         fail("the build log names no fused Consistency ring step kernel")
     for k, v in mine.items():
-        if k.startswith(("agree", "transform")):
+        if k.startswith(("agree", "transform", "bases")):
             print(f"  ptxas: {k}: {v}", flush=True)
     for fam in ("consistency_kernel", "band_consistency_kernel"):
         # registers/stack/spill bytes of each <nw,last,global> instance
@@ -809,6 +900,175 @@ def call_case(torch, label, call, expect, truth):
              "call_peak_bytes": peak - held}, d1, c1)
 
 
+def write_png_gray8(path: Path, img) -> None:
+    """An 8-bit grayscale PNG of a ``(H, W)`` uint8 array: filter Up on
+    every row, stored (level-0) deflate blocks."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = img.shape
+    up = np.diff(img, axis=0, prepend=np.zeros((1, w), np.uint8))
+    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up.astype(np.uint8)],
+                         axis=1)
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0,
+                                                  0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 0))
+                     + chunk(b"IEND", b""))
+
+
+def read_tiff(path: Path):
+    """A single-channel TIFF: cv2 where it imports, else the uncompressed
+    little-endian layout that ``libbicos_tpu_torch.io`` writes without
+    it (int16 or float32, strips in order)."""
+    import struct
+
+    import numpy as np
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        if img is None:
+            fail(f"cv2 cannot read {path}")
+        return img
+    data = path.read_bytes()
+    if data[:4] != b"II*\x00":
+        fail(f"{path}: not a little-endian TIFF")
+    (ifd,) = struct.unpack("<I", data[4:8])
+    (count,) = struct.unpack("<H", data[ifd:ifd + 2])
+    tags = {}
+    for i in range(count):
+        tag, typ, n, value = struct.unpack(
+            "<HHII", data[ifd + 2 + 12 * i:ifd + 14 + 12 * i])
+        tags[tag] = value & 0xFFFF if typ == 3 else value
+    if tags.get(259, 1) != 1 or tags.get(277, 1) != 1 or tags[273] == 0:
+        fail(f"{path}: not an uncompressed one-strip single-channel TIFF")
+    dtype = {(16, 2): "<i2", (32, 3): "<f4"}[(tags[258], tags.get(339, 1))]
+    w, h = tags[256], tags[257]
+    return np.frombuffer(data, dtype=dtype, count=w * h,
+                         offset=tags[273]).reshape(h, w).astype(dtype[1:])
+
+
+def write_q_yaml(path: Path, q) -> None:
+    """A 4x4 ``Q`` in the ``!!opencv-matrix`` YAML of ``cv::FileStorage``."""
+    vals = ", ".join(repr(float(v)) for v in q.reshape(-1))
+    path.write_text("%YAML:1.0\n---\nQ: !!opencv-matrix\n   rows: 4\n"
+                    f"   cols: 4\n   dt: d\n   data: [ {vals} ]\n")
+
+
+def run_cli(folder: Path, args, label: str) -> str:
+    """``python -m libbicos_tpu_torch.cli folder args`` in a process of its
+    own; returns its stdout, fails the run unless it exits 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "libbicos_tpu_torch.cli", str(folder), *args],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"CLI {label} exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+             f"\n{proc.stderr[-3000:]}")
+    print(f"  CLI {label}: exit 0 in {time.perf_counter() - t0:.1f} s "
+          "(process start, loading and saving included)", flush=True)
+    return proc.stdout
+
+
+def write_stack_folder(folder: Path, s0, s1) -> None:
+    folder.mkdir(parents=True)
+    for i in range(s0.shape[0]):
+        write_png_gray8(folder / f"{i}_left.png", s0[i])
+        write_png_gray8(folder / f"{i}_right.png", s1[i])
+
+
+def cli_phase(torch, s0n, s1n, want_a, card) -> dict:
+    """The CLI at the headline size, equal to call A; two small cases
+    (``-q`` and ``-m 1 --no-dupes``) equal to their in-process calls."""
+    import shutil
+
+    import numpy as np
+
+    import libbicos_tpu_torch as bicos
+    from libbicos_tpu_torch.io import synthetic_stack_pair
+
+    work = REPO / "_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        write_stack_folder(work / "headline", s0n, s1n)
+        print(f"  CLI input: {2 * s0n.shape[0]} PNGs written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out = run_cli(work / "headline", [
+            "-t", str(THRESHOLD), "--limited", "-v", str(MIN_VARIANCE), "-s",
+            str(STEP), "--corrmap", "-o", str(work / "disp.png")],
+            "headline")
+        latency = next((line for line in out.splitlines()
+                        if line.startswith("Latency")), None)
+        if latency is None:
+            fail("the CLI printed no latency line")
+        print(f"  CLI headline: {latency.strip()} ({card})", flush=True)
+        disp = torch.from_numpy(read_tiff(work / "disp.tiff"))
+        corr = torch.from_numpy(read_tiff(work / "disp-corrmap.tiff"))
+        want_d, want_c = (x.cpu() for x in want_a)
+        if disp.dtype != torch.float32 or not same_bits(torch, disp, want_d):
+            fail("the CLI's disparity TIFF differs from call A's disparity")
+        m = ~torch.isnan(want_c)
+        if not torch.equal(torch.isnan(corr), ~m) or bool(
+                ((corr[m] - want_c[m]).abs() > TOL + TOL * want_c[m].abs())
+                .any()):
+            fail("the CLI's corrmap TIFF is not within 4e-6 of call A's")
+        print("  CLI headline: disparity TIFF equal to call A bit for bit "
+              "(NaN mask included), corrmap within 4e-6", flush=True)
+
+        x0, x1, _ = synthetic_stack_pair(9, 48, 256, seed=17)
+        write_stack_folder(work / "small", x0, x1)
+        q = np.array([[1, 0, 0, -128.0], [0, 1, 0, -24.0], [0, 0, 0, 500.0],
+                      [0, 0, 1 / 0.1, 0]])
+        write_q_yaml(work / "Q.yaml", q)
+        run_cli(work / "small", ["-t", "0.5", "--limited", "-s", "0.25",
+                                 "-q", str(work / "Q.yaml"), "-o",
+                                 str(work / "q.png")], "-q")
+        dq = read_tiff(work / "q.tiff")
+        want = bicos.match(x0, x1, bicos.Config(
+            nxcorr_threshold=0.5, subpixel_step=0.25), backend="cuda").cpu()
+        if not same_bits(torch, torch.from_numpy(dq), want):
+            fail("the CLI's -q disparity differs from match's")
+        # cv::reprojectImageTo3D with this Q: z = 500 / (0.1 d) > 0 for the
+        # valid pixels of positive disparity.
+        lines = (work / "q.xyz").read_text().splitlines()
+        valid = ~np.isnan(dq)
+        expect = int((valid & (dq > 0)).sum())
+        if len(lines) != expect or any(len(ln.split()) != 3
+                                       for ln in lines[:100]):
+            fail(f"the CLI's .xyz has {len(lines)} lines, expected {expect}")
+        run_cli(work / "small", ["-m", "1", "--no-dupes", "-o",
+                                 str(work / "m.png")], "-m 1 --no-dupes")
+        dm = read_tiff(work / "m.tiff")
+        want = bicos.match(x0, x1, bicos.Config(
+            nxcorr_threshold=0.75, mode=bicos.TransformMode.FULL,
+            variant=bicos.Consistency(1, True)), backend="cuda").cpu()
+        if dm.dtype != np.int16 or not torch.equal(torch.from_numpy(dm),
+                                                   want):
+            fail("the CLI's -m 1 --no-dupes disparity differs from match's")
+        print(f"  CLI small cases (n=9 48x256): -q wrote {len(lines)} points "
+              "and its disparity equals match's; -m 1 --no-dupes (FULL, "
+              "threshold 0.75) equals match's", flush=True)
+        return {"latency_line": latency.strip(), "xyz_points": len(lines)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -1005,8 +1265,9 @@ def main() -> None:
                 window=(chunk, wcap, bases))
     from libbicos_tpu_torch.kernels.bases import chunk_window_bases_cuda
 
-    bases_ms = time_ms(torch, lambda: chunk_window_bases_cuda(
-        disp, w, wp, wcap, chunk))
+    bases_dt = device_times(torch, lambda: chunk_window_bases_cuda(
+        disp, w, wp, wcap, chunk), "bases", graph=True)
+    bases_ms = bases_dt["ms"]
     bases_plain_ms = time_ms(torch, lambda: ta.chunk_window_bases(
         disp, w, wp, wcap, chunk), reps=3)
     bases_bound = bound(disp.numel() * 2 + bases.numel() * 4)
@@ -1024,7 +1285,11 @@ def main() -> None:
           f"{res['ms']:.3f} ms with the kernels (A {results['A']['ms']:.3f}),"
           f" {res['plain_ms']:.1f} ms plain; equal to call A bit for bit; "
           f"windowed share {share:.6f} of {bases.numel()} chunks; bases "
-          f"kernel {bases_ms:.4f} ms, plain {bases_plain_ms:.3f} ms; "
+          f"kernel {bases_ms:.4f} ms ({LAUNCHES} launches in a CUDA graph; "
+          f"L2 flushed {bases_dt['cold_ms']:.4f}; profiler "
+          f"{bases_dt['profiler_ms']:.4f}, flushed "
+          f"{bases_dt['profiler_cold_ms']:.4f}; one launch "
+          f"{bases_dt['call_ms']:.4f}), plain {bases_plain_ms:.3f} ms; "
           f"windowed agree {wms:.3f} ms, global-read agree "
           f"{results['A']['agree_ms']:.3f} ms ({card})", flush=True)
 
@@ -1158,9 +1423,44 @@ def main() -> None:
     print("phase 4: every sharded call launched its path's kernels, ran "
           "deterministically and equals its single-card call", flush=True)
 
+    # Phase 5: the user surfaces on the card: the CLI, stage timings, the
+    # pybicos surface and BICOS_DEBUG's checks.
+    from libbicos_tpu_torch import profiling
+    from libbicos_tpu_torch import pybicos_compat as pybicos
+
+    cli = cli_phase(torch, s0n, s1n, single["A"], card)
+    stages = profiling.stage_timings(s0, s1, cfgs["A"], backend="cuda")
+    print(f"  stage_timings at A: {stages} ({card})", flush=True)
+    p0, p1, _ = synthetic_stack_pair(9, 24, 160, seed=9)
+    pcfg = pybicos.Config()
+    pcfg.subpixel_step = 0.25
+    pd, pc = pybicos.match(list(p0), list(p1), pcfg)
+    md, mc = bicos.match(p0, p1, pcfg._to_native(), corrmap=True,
+                         backend="cuda")
+    if not (isinstance(pd, np.ndarray) and same_bits(
+            torch, torch.from_numpy(pd), md.cpu())
+            and same_bits(torch, torch.from_numpy(pc), mc.cpu())):
+        fail("pybicos_compat.match differs from match")
+    print("  pybicos_compat.match (n=9 24x160) equals match", flush=True)
+    os.environ["BICOS_DEBUG"] = "1"
+    try:
+        dd, dc = bicos.match(s0, s1, cfgs["A"], corrmap=True, backend="cuda")
+    finally:
+        os.environ.pop("BICOS_DEBUG")
+    if not (same_bits(torch, dd, single["A"][0])
+            and same_bits(torch, dc, single["A"][1])):
+        fail("call A under BICOS_DEBUG differs from call A")
+    print("  call A under BICOS_DEBUG=1: the checks passed, equal to call A",
+          flush=True)
+    results_extra = {"cli": cli, "stage_timings_A": stages}
+    print("phase 5: the CLI, stage timings, pybicos_compat and BICOS_DEBUG "
+          "ran on the card and agree with match", flush=True)
+
+    transform_dt = device_times(torch, lambda: descriptor_words_cuda(
+        s0, mode), "transform_kernel", graph=False)
     timings = {
         "transform": (
-            time_ms(torch, lambda: descriptor_words_cuda(s0, mode)),
+            transform_dt["ms"],
             time_ms(torch, lambda: td.descriptor_words(s0, mode), reps=3)),
         "hamming": scans["A"][1:],
         "consistency": scans["B"][1:],
@@ -1194,10 +1494,12 @@ def main() -> None:
         print(f"  {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms, bound "
               f"{bounds[k][0]:.4f} ms by {bounds[k][1]} ({card})",
               flush=True)
-    print(json.dumps({"calls": results, "shape": list(HEADLINE),
+    print(json.dumps({"calls": results, **results_extra,
+                      "shape": list(HEADLINE),
                       "dtype": "uint8", "mode": "LIMITED",
                       "threshold": THRESHOLD, "min_variance": MIN_VARIANCE,
                       "step": STEP, "card": card}), flush=True)
+    many = {"bases": bases_dt, "transform": transform_dt}
     kernels = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
          "replaces": SOURCES[k][1],
@@ -1207,7 +1509,12 @@ def main() -> None:
          "bound_by": bounds[k][1],
          # No single PyTorch call computes any of these functions.
          "library_ms": None,
-         **({"bound_conv_pipe_ms": conv_pipe_ms} if k == "agree" else {})}
+         **({"bound_conv_pipe_ms": conv_pipe_ms} if k == "agree" else {}),
+         # Device time of many launches (ms); call_ms: one launch between
+         # an event pair, the wrapper's host work included.
+         **({x: many[k][x] for x in ("call_ms", "cold_ms", "profiler_ms",
+                                     "profiler_cold_ms")}
+            if k in many else {})}
         for k in KERNELS
     ]
     print(card, flush=True)

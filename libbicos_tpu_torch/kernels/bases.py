@@ -10,10 +10,19 @@ in-kernel mode. Its plain version is
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import agree as _agree
 from . import _build
+
+
+@functools.cache
+def _entry():
+    """The C entry point, looked up once: the kernel takes a few
+    microseconds, so the wrapper's own host work counts."""
+    return _build.library().bicos_chunk_window_bases
 
 
 def chunk_window_bases_cuda(disp: torch.Tensor, w: int, wp: int, wcap: int,
@@ -34,7 +43,7 @@ def chunk_window_bases_cuda(disp: torch.Tensor, w: int, wp: int, wcap: int,
     out = torch.empty((h, wp // chunk), dtype=torch.int32, device=disp.device)
     if out.numel() == 0:
         return out
-    rc = _build.library().bicos_chunk_window_bases(
+    rc = _entry()(
         disp.device.index, disp.data_ptr(), out.data_ptr(), h, wd, w, wp,
         wcap, chunk, _build.stream_of(disp))
     _build.check(rc, "bases")

@@ -22,7 +22,8 @@ and both precisions run on both backends. ``BICOS_AGREE_DYNWIN`` (read at
 call time, see :func:`kernels.agree.agree_window`) turns on the agree
 stage's dynamic window: per (row, chunk) bases computed from the
 disparity, which the agree kernel uses to stage right-series windows in
-shared memory. The results do not change.
+shared memory. The results do not change. ``BICOS_DEBUG`` (read at call
+time) makes ``match`` check its result (see :mod:`debug`).
 """
 
 from __future__ import annotations
@@ -184,6 +185,13 @@ def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
     if cfg.nxcorr_threshold is not None:
         disp, corr = agree_stage(disp, stack0, stack1, cfg, backend,
                                  window=_agree_window_params(stack0, cfg))
+    from . import debug as _debug
+
+    if _debug.enabled():
+        # BICOS_DEBUG's invariant checks (see debug.py); they fetch the
+        # results to the host.
+        _debug.check_match_output(disp, corr, stack0.shape[2],
+                                  subpixel=cfg.subpixel_step is not None)
     if corrmap:
         return disp, corr
     return disp

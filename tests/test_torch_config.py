@@ -189,6 +189,9 @@ def test_import_leaves_jax_out():
         "import libbicos_tpu_torch.kernels.hamming\n"
         "import libbicos_tpu_torch.kernels.transform\n"
         "import libbicos_tpu_torch.sharding\n"
+        "import libbicos_tpu_torch.debug, libbicos_tpu_torch.profiling\n"
+        "import libbicos_tpu_torch.pybicos_compat, libbicos_tpu_torch.cli\n"
+        "import libbicos_tpu_torch._colormaps\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'libbicos_tpu')]\n"
         "assert not bad, bad\n"

@@ -511,6 +511,55 @@ def test_bases_kernel_equal(dev, chunk, wcap, w):
     assert bool((want >= 0).any()) and bool((want < 0).any())
 
 
+def _edge_disp(dev, h, wd, seed):
+    """Random disparities with 10% invalid pixels, a row all invalid and a
+    row all out of range (every matched column negative)."""
+    g = np.random.default_rng(seed)
+    d = g.integers(-60, 400, (h, wd)).astype(np.int16)
+    d[g.random((h, wd)) < 0.1] = ta.INVALID_I16
+    if h > 2:
+        d[1] = ta.INVALID_I16
+        d[2] = np.arange(wd) + 7
+    return torch.from_numpy(d).to(dev)
+
+
+@pytest.mark.parametrize("chunk, wcap, pad", [
+    (128, 256, 0), (256, 640, 0), (512, 1024, 0), (256, 640, 2),
+    (130, 384, 0), (4, 256, 1), (384, 640, 1),
+])
+@pytest.mark.parametrize("h, wd", [(5, 1408), (5, 1409), (5, 1410),
+                                   (5, 1411), (1, 3300), (3, 127)])
+def test_bases_kernel_equal_edges(dev, chunk, wcap, pad, h, wd):
+    """Both paths of bases.cu (the vector path: chunk % 128 == 0, W % 4 ==
+    0, aligned rows; the scalar path: the rest) equal the plain version
+    exactly: W % 4 of 0-3, a ragged last chunk (W < wp), ``pad`` chunks
+    wholly past W, one row, rows all invalid or all out of range."""
+    disp = _edge_disp(dev, h, wd, seed=wd + chunk)
+    wp = (-(-wd // chunk) + pad) * chunk
+    w = wd if wd > 200 else 900  # a right row wider than the left one
+    _build.reset_launch_counts()
+    got = chunk_window_bases_cuda(disp, w, wp, wcap, chunk)
+    assert _build.launch_counts()["bases"] == 1
+    assert torch.equal(got, ta.chunk_window_bases(disp, w, wp, wcap, chunk))
+
+
+def test_bases_kernel_unaligned_and_noncontiguous(dev):
+    """A disparity whose base is 2 bytes past an 8-byte boundary takes the
+    scalar path and gives the same bases; a non-contiguous one is refused."""
+    h, wd, chunk, wcap = 4, 1412, 256, 640
+    disp = _edge_disp(dev, h, wd, seed=1)
+    buf = torch.empty(h * wd + 1, dtype=torch.int16, device=dev)
+    buf[1:] = disp.reshape(-1)
+    shifted = buf[1:].view(h, wd)
+    assert shifted.data_ptr() % 8 == 2 and shifted.is_contiguous()
+    wp = -(-wd // chunk) * chunk
+    want = ta.chunk_window_bases(disp, wd, wp, wcap, chunk)
+    assert torch.equal(chunk_window_bases_cuda(shifted, wd, wp, wcap, chunk),
+                       want)
+    with pytest.raises(ValueError, match="contiguous"):
+        chunk_window_bases_cuda(disp.t(), h, 256, 128, 128)
+
+
 def _plain_agree(disp, s0, s1, thr, step, minvar, precision, col_offset=0):
     if step is None:
         po, pc = ta.agree_integer(disp, s0, s1, thr, minvar, col_offset,
@@ -786,3 +835,78 @@ def test_transform_kernel_edges(dev, n, mode, dtype, h, w, cut):
     assert s.is_contiguous()
     m = tb.TransformMode[mode]
     assert torch.equal(descriptor_words_cuda(s, m), td.descriptor_words(s, m))
+
+
+@pytest.mark.parametrize("w", [16384, 20000])
+def test_kernels_at_wide_rows(dev, w):
+    """``transform.cu``, ``hamming.cu`` (full row and ranged) and
+    ``agree.cu`` on two rows at least 16384 columns wide, against their
+    plain versions."""
+    s0, s1 = _pair(dev, 9, 2, w, seed=5)
+    mode = tb.TransformMode.LIMITED
+    w0, w1 = (descriptor_words_cuda(s, mode) for s in (s0, s1))
+    assert torch.equal(w0, td.descriptor_words(s0, mode))
+    assert torch.equal(w1, td.descriptor_words(s1, mode))
+    for drange in (None, (0, 511), (-300, 9000)):
+        first, last = row_minima_words(w0, w1, True, drange=drange)
+        _, pf, pl = ts.row_minima_torch_words(w0, w1, True, drange=drange)
+        assert torch.equal(first, pf) and torch.equal(last, pl)
+        if drange is None:
+            disp = ts._finish_nodupes(pf, pl, w)
+    assert bool((disp != ta.INVALID_I16).any())
+    for step, minvar in ((0.1, 18.0), (None, None)):
+        out, corr = agree_cuda(disp, s0, s1, 0.5, step, minvar)
+        _assert_plain_bar(out, corr, *_plain_agree(
+            disp, s0, s1, 0.5, step, minvar, tb.Precision.SINGLE))
+
+
+# ---------------------------------------------------------------------------
+# The user surfaces on the card.
+
+
+def test_pybicos_compat_on_the_card_equals_match(dev):
+    from libbicos_tpu_torch import pybicos_compat as pybicos
+
+    s0, s1, _ = synthetic_stack_pair(9, 6, 120, seed=4)
+    for step in (None, 0.25):
+        cfg = pybicos.Config()
+        cfg.subpixel_step = step
+        _build.reset_launch_counts()
+        disp, corr = pybicos.match(list(s0), list(s1), cfg)
+        assert _build.launch_counts()["agree"] == 1
+        want_d, want_c = tb.match(s0, s1, cfg._to_native(), corrmap=True,
+                                  backend="torch", device="cpu")
+        assert disp.dtype == np.float32 and corr.dtype == np.float32
+        _assert_plain_bar(torch.from_numpy(disp), torch.from_numpy(corr),
+                          want_d.float(), want_c)
+
+
+def test_cli_on_the_card_equals_cpu(dev, tmp_path):
+    """``python -m libbicos_tpu_torch.cli`` on the card (the default
+    device) writes the disparity of ``--device cpu``; the corrmap within
+    4e-6."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import chip_smoke as cs
+
+    repo = Path(__file__).resolve().parent.parent
+    s0, s1, _ = synthetic_stack_pair(7, 12, 96, seed=8)
+    cs.write_stack_folder(tmp_path / "imgs", s0, s1)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo), env.get("PYTHONPATH",
+                                                            "")])
+    out = {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "libbicos_tpu_torch.cli",
+             str(tmp_path / "imgs"), "-t", "0.5", "--limited", "-s", "0.1",
+             "--corrmap", "-o", str(tmp_path / f"{tag}.png"), *extra],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        out[tag] = [torch.from_numpy(cs.read_tiff(tmp_path / name))
+                    for name in (f"{tag}.tiff", f"{tag}-corrmap.tiff")]
+    (cd, cc), (pd, pc) = out["card"], out["cpu"]
+    _assert_plain_bar(cd, cc, pd, pc)

@@ -7,10 +7,13 @@ every rank, for 2 and 4 processes; Consistency's reverse minima travel by
 The file is its own worker, and imports only torch, numpy and the port::
 
     python tests/test_torch_dist.py <rank> <world> <store> <io.npz> <backend>
+        [CLI ARGUMENTS...]
 
 joins a ``<backend>`` group (gloo, or nccl with card ``<rank>``) through
 the ``FileStore`` at ``<store>`` (no ports), runs every case on the stacks
-in ``<io.npz>`` and writes its results to ``<io.npz>.<rank>.npz``. Each
+in ``<io.npz>`` and writes its results to ``<io.npz>.<rank>.npz``; given
+CLI arguments, it runs ``libbicos_tpu_torch.cli.main`` on them with
+``--devices <world>`` instead (``tests/test_torch_cli.py``). Each
 worker runs under a timeout, so a hang fails the test and never stalls the
 suite. ``tests/test_torch_cuda.py`` runs the same group on NCCL.
 """
@@ -89,7 +92,7 @@ def run_cases(s0, s1, mesh) -> dict:
 
 
 def _worker(rank: int, world: int, store: str, io: str,
-            backend: str) -> None:
+            backend: str, cli_args=()) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(1)
@@ -101,6 +104,14 @@ def _worker(rank: int, world: int, store: str, io: str,
         backend, store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT // 2))
     try:
+        if cli_args:
+            from libbicos_tpu_torch import cli
+
+            rc = cli.main([*cli_args, "--devices", str(world), "--device",
+                           str(device)])
+            if rc != 0:
+                raise RuntimeError(f"the CLI returned {rc}")
+            return
         mesh = tsh.make_mesh(device=device)
         if not isinstance(mesh, tsh.DistMesh) or mesh.size != world:
             raise RuntimeError(f"expected a DistMesh of {world}, got {mesh}")
@@ -117,11 +128,11 @@ def _worker(rank: int, world: int, store: str, io: str,
         dist.destroy_process_group()
 
 
-def _run_worker(rank, world, store, io, backend, env):
+def _run_worker(rank, world, store, io, backend, env, cli_args=()):
     return subprocess.run(
         [sys.executable, __file__, str(rank), str(world), str(store),
-         str(io), backend], cwd=REPO, env=env, capture_output=True,
-        text=True, timeout=TIMEOUT)
+         str(io), backend, *cli_args], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=TIMEOUT)
 
 
 def _assert_equal(name, got, want):
@@ -145,24 +156,22 @@ def test_dist_cases_are_not_trivial():
             assert invalid.any() and (~invalid).any(), name
 
 
-def run_group(tmp_path, world, backend="gloo"):
-    """``world`` worker processes on ``backend`` against a ``LocalMesh`` of
-    ``world`` bands in this process (on card 0 for nccl)."""
-    import pytest
-
-    s0, s1, _ = synthetic_stack_pair(5, 6, 42, seed=3)
-    # The reference first: on a card it also builds the kernels once.
-    want = run_cases(s0, s1, tsh.make_mesh(
-        world, virtual=True, device="cuda:0" if backend == "nccl" else "cpu"))
-    io = tmp_path / "io.npz"
-    np.savez(io, s0=s0, s1=s1)
+def _worker_env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
+    return env
+
+
+def start_group(tmp_path, world, io, backend="gloo", cli_args=()):
+    """``world`` workers of one group; their completed processes."""
+    import pytest
+
+    env = _worker_env()
     with concurrent.futures.ThreadPoolExecutor(world) as pool:
         futs = [pool.submit(_run_worker, r, world, tmp_path / "store", io,
-                            backend, env) for r in range(world)]
+                            backend, env, cli_args) for r in range(world)]
         try:
             procs = [f.result() for f in futs]
         except subprocess.TimeoutExpired as e:
@@ -170,6 +179,19 @@ def run_group(tmp_path, world, backend="gloo"):
     for rank, proc in enumerate(procs):
         assert proc.returncode == 0, (
             f"rank {rank}: {proc.stdout}\n{proc.stderr}")
+    return procs
+
+
+def run_group(tmp_path, world, backend="gloo"):
+    """``world`` worker processes on ``backend`` against a ``LocalMesh`` of
+    ``world`` bands in this process (on card 0 for nccl)."""
+    s0, s1, _ = synthetic_stack_pair(5, 6, 42, seed=3)
+    # The reference first: on a card it also builds the kernels once.
+    want = run_cases(s0, s1, tsh.make_mesh(
+        world, virtual=True, device="cuda:0" if backend == "nccl" else "cpu"))
+    io = tmp_path / "io.npz"
+    np.savez(io, s0=s0, s1=s1)
+    start_group(tmp_path, world, io, backend)
     for rank in range(world):
         got = np.load(f"{io}.{rank}.npz")
         assert sorted(got.files) == sorted(want)
@@ -187,4 +209,4 @@ def test_distmesh_four_processes_equal_localmesh(tmp_path):
 
 if __name__ == "__main__":
     _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-            sys.argv[5])
+            sys.argv[5], sys.argv[6:])
