@@ -65,6 +65,20 @@
    its in-process ``match``; ``profiling.stage_timings`` at A;
    ``pybicos_compat.match`` equal to ``match``; call A under
    ``BICOS_DEBUG=1``, whose checks must pass.
+6. Runs the port's daemon (``libbicos_tpu_torch.serve``) in a thread on
+   the card with A's configuration, warmed at the headline shape, and
+   drives it through ``libbicos_tpu_torch.client.BicosClient``: ``/healthz``
+   reports 1 specialization after the warmup; four headline
+   ``/match?corrmap=1`` requests (cell L) each equal call A bit for bit; a
+   batched request of two full-size pairs (cell M) equals
+   ``match_batched_folded`` in process and its first pair call A;
+   ``lr_maxdiff=1&no_dupes=1`` equals call B and ``disp_range=0:511`` call
+   C; a second daemon on a 4-band virtual mesh answers call H. Each
+   request's launches are counted from 0 and must be its path's kernels.
+   It prints the warmup's time and each request split into the client's
+   npz encode, the server's body read, ``np.load``, upload, match and
+   download (each fenced by ``torch.cuda.synchronize()``), the reply's
+   encode and the client's decode (the ``Server-Timing`` header).
 
 The bases and transform kernels' times are device times: ``LAUNCHES``
 launches behind one event pair (the bases replayed from a CUDA graph, so
@@ -80,10 +94,11 @@ within 4e-6 of each other (counted).
 
 Any failure exits non-zero. The last line is the device JSON object; the
 line before it lists the kernels with their launches (summed over the ten
-calls), errors, times and bounds. A kernel's bound is the least time the
-card could take for its work on this run's inputs: the larger of its bytes
-(each input read once, each output written once) over the memory rate and
-its operations over the rate of their type (see ``PEAK``).
+calls and the served requests), errors, times and bounds. A kernel's bound
+is the least time the card could take for its work on this run's inputs:
+the larger of its bytes (each input read once, each output written once)
+over the memory rate and its operations over the rate of their type (see
+``PEAK``).
 """
 
 import dataclasses
@@ -1069,6 +1084,145 @@ def cli_phase(torch, s0n, s1n, want_a, card) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+SERVE_PHASES = ("encode", "server_read", "server_load", "server_upload",
+                "server_match", "server_download", "server_reply", "decode")
+
+
+def serve_phase(torch, s0n, s1n, cfgs, want, card) -> dict:
+    """Phase 6: the port's daemon on the card, through its client. ``want``:
+    label -> (disparity, corrmap) of calls A, B, C and H. Returns the
+    launch counts and times of the served requests, by cell."""
+    import threading
+
+    import numpy as np
+
+    from libbicos_tpu_torch import sharding
+    from libbicos_tpu_torch.client import BicosClient
+    from libbicos_tpu_torch.io import synthetic_stack_pair
+    from libbicos_tpu_torch.kernels import _build
+    from libbicos_tpu_torch.pipeline import match_batched_folded
+    from libbicos_tpu_torch.serve import Engine, serve
+
+    dev = torch.device("cuda", 0)
+
+    def start(engine, warmup=()):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ready = threading.Event()
+        threading.Thread(target=serve, args=(engine, "127.0.0.1", port),
+                         kwargs={"warmup_shapes": warmup,
+                                 "ready_event": ready},
+                         daemon=True).start()
+        if not ready.wait(600):
+            fail("phase 6: the daemon did not start")
+        return BicosClient(f"http://127.0.0.1:{port}", timeout=600)
+
+    def held(label, got, ref):
+        for g, r, what in zip(got, ref, ("disparity", "corrmap")):
+            if not same_bits(torch, torch.from_numpy(g), r.cpu()):
+                fail(f"phase 6: {label}: the served {what} differs")
+
+    def split(timing) -> str:
+        return ", ".join(f"{k} {timing[k]:.3f}" for k in SERVE_PHASES)
+
+    out = {}
+    path = {k: 0 for k in KERNELS}
+    nodup = {**path, "transform": 2, "hamming": 1, "agree": 1}
+    engine = Engine(cfgs["A"], device=dev)
+    t0 = time.perf_counter()
+    client = start(engine, [(s0n.shape, "uint8")])
+    warm_s = time.perf_counter() - t0
+    health = client.healthz()
+    if health != {"status": "ok", "compiled": 1}:
+        fail(f"phase 6: /healthz after the warmup says {health}")
+    print(f"phase 6: daemon on {dev}, warmup {s0n.shape} u8 in {warm_s:.3f} "
+          f"s (kernel library, CUDA context, random pair, one match) "
+          f"({card})", flush=True)
+
+    # Cell L: headline requests, the first after the warmup and 3 more.
+    _build.reset_launch_counts()
+    timings = []
+    for k in range(4):
+        t0 = time.perf_counter()
+        got = client.match(s0n, s1n, corrmap=True)
+        wall = (time.perf_counter() - t0) * 1e3
+        timings.append({**client.last_timing, "wall": wall})
+        held(f"headline request {k}", got, want["A"])
+    launches = _build.launch_counts()
+    if launches != {k: 4 * v for k, v in nodup.items()}:
+        fail(f"phase 6: 4 headline requests launched {launches}")
+    med = {k: statistics.median(t[k] for t in timings[1:])
+           for k in timings[0]}
+    for tag, t in (("first", timings[0]), ("median of 3 more", med)):
+        print(f"  L headline /match?corrmap=1, {tag}: {t['wall']:.3f} ms "
+              f"wall, request {t['request']:.3f}: {split(t)} ({card})",
+              flush=True)
+    out["L"] = {"launches": launches, "warmup_s": warm_s,
+                "first_ms": timings[0], "median_ms": med,
+                "equals": "A"}
+
+    # Cell M: a batched request of two full-size pairs.
+    t1n, t2n, _ = synthetic_stack_pair(*s0n.shape, seed=0x5EED)
+    b0, b1 = np.stack([s0n, t1n]), np.stack([s1n, t2n])
+    del t1n, t2n
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = client.match(b0, b1, corrmap=True)
+    wall = (time.perf_counter() - t0) * 1e3
+    timing = {**client.last_timing, "wall": wall}
+    launches = _build.launch_counts()
+    if launches != nodup:
+        fail(f"phase 6: the batched request launched {launches}")
+    want_b = match_batched_folded(*(sharding.fold_host(b) for b in (b0, b1)),
+                                  2, cfgs["A"], corrmap=True, device=dev)
+    held("batched request", got, want_b)
+    held("batched request, first pair", (got[0][0], got[1][0]), want["A"])
+    del b0, b1, want_b
+    print(f"  M batched {(2, *s0n.shape)} /match?corrmap=1: {wall:.3f} ms "
+          f"wall, request {timing['request']:.3f}: {split(timing)}; equal "
+          f"to match_batched_folded in process, its first pair to call A "
+          f"({card})", flush=True)
+    out["M"] = {"launches": launches, "ms": timing,
+                "equals": "match_batched_folded"}
+
+    # Consistency and the range, from the same daemon.
+    cons = {**path, "transform": 2, "consistency": 1, "agree": 1}
+    for label, params, ref, expect in (
+            ("B", {"lr_maxdiff": 1, "no_dupes": 1}, "B", cons),
+            ("C", {"disp_range": f"{DRANGE[0]}:{DRANGE[1]}"}, "C", nodup)):
+        _build.reset_launch_counts()
+        got = client.match(s0n, s1n, corrmap=True, **params)
+        launches = _build.launch_counts()
+        if launches != expect:
+            fail(f"phase 6: the request {params} launched {launches}")
+        held(f"request {params}", got, want[ref])
+        out[f"served {label}"] = {"launches": launches, "equals": ref,
+                                  "ms": client.last_timing}
+        query = "&".join(f"{k}={v}" for k, v in params.items())
+        print(f"  /match?corrmap=1&{query} equals call {ref}: "
+              f"{split(client.last_timing)} ({card})", flush=True)
+
+    # An Engine on 4 row bands of the one card.
+    mesh = sharding.make_mesh(NBANDS, virtual=True, device=dev)
+    mclient = start(Engine(cfgs["A"], mesh=mesh))
+    _build.reset_launch_counts()
+    got = mclient.match(s0n, s1n, corrmap=True)
+    launches = _build.launch_counts()
+    want_l = {**path, "transform": 2 * NBANDS, "hamming": NBANDS,
+              "agree": NBANDS}
+    if launches != want_l:
+        fail(f"phase 6: the 4-band engine launched {launches}")
+    held("4-band engine", got, want["H"])
+    out["served H"] = {"launches": launches, "equals": "H",
+                       "ms": mclient.last_timing}
+    print(f"  4-band engine (make_mesh(4, virtual=True)) equals call H: "
+          f"{split(mclient.last_timing)} ({card})", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -1343,6 +1497,7 @@ def main() -> None:
         "G": ("C", sharding.match_sharded_w, {**wpath, "band": 8}),
         "H": ("A", sharding.match_sharded, {**wpath, "hamming": NBANDS}),
     }
+    sharded_out = {}
     col_b0, col_b1 = (sharding._bands(x, 2, mesh) for x in (s0, s1))
     row_b0, row_b1 = (sharding._bands(x, 1, mesh) for x in (s0, s1))
     row_w0, row_w1 = ([descriptor_words_cuda(x, mode) for x in b]
@@ -1358,6 +1513,7 @@ def main() -> None:
                                                corrmap=True,
                                                backend=backend),
             expect, truth)
+        sharded_out[label] = (d1, c1)
         for got, want, what in zip((d1, c1), single[ref],
                                    ("disparity", "corrmap")):
             bad = (torch.isnan(got) != torch.isnan(want)) | (
@@ -1455,6 +1611,14 @@ def main() -> None:
     results_extra = {"cli": cli, "stage_timings_A": stages}
     print("phase 5: the CLI, stage timings, pybicos_compat and BICOS_DEBUG "
           "ran on the card and agree with match", flush=True)
+
+    # Phase 6: the daemon on the card, through the client.
+    served = serve_phase(torch, s0n, s1n, cfgs, {
+        **{k: single[k] for k in "ABC"}, "H": sharded_out["H"]}, card)
+    results.update(served)
+    print("phase 6: the daemon served the headline, batched, Consistency, "
+          "ranged and 4-band requests through the kernels, each equal to "
+          "its in-process call", flush=True)
 
     transform_dt = device_times(torch, lambda: descriptor_words_cuda(
         s0, mode), "transform_kernel", graph=False)

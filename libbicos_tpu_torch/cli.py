@@ -185,11 +185,12 @@ LICENSE_HEADER = (
 )
 
 
-def _distributed(n: int, device):
-    """A mesh of ``n`` processes of ``torch.distributed`` and this process's
-    device: the default group as it is, or initialised from the
-    environment that ``torchrun`` sets (NCCL on the card, gloo on the
-    CPU)."""
+def _distributed(n: int, device, module: str = "libbicos_tpu_torch.cli"):
+    """A mesh of ``n`` processes of ``torch.distributed``, this process's
+    device and whether it is rank 0: the default group as it is, or
+    initialised from the environment that ``torchrun`` sets (NCCL on the
+    card, gloo on the CPU). ``module`` names the entry point in the
+    error without ``torchrun``."""
     import torch.distributed as dist
 
     from .pipeline import resolve_device
@@ -203,7 +204,7 @@ def _distributed(n: int, device):
             raise ValueError(
                 f"--devices {n} shards over {n} processes of "
                 f"torch.distributed: run it as torchrun --nproc-per-node {n}"
-                " -m libbicos_tpu_torch.cli ...")
+                f" -m {module} ...")
         on_card = device is None or torch.device(device).type == "cuda"
         if on_card and device is None:
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",

@@ -7,6 +7,8 @@ The counterpart of ``libbicos_tpu.io`` (the reference's
   or single-folder (``0_left.png`` / ``0_right.png``) loading, grayscale
   at any depth, alpha dropped;
 * :func:`sort_sequence_to_stack`, :func:`load_stack_pair`;
+* :func:`distribute_stack`, :func:`load_multihost_stack`: only this
+  process's row bands on its device (``sharding.RowBands``);
 * :func:`save_image`: a colorized PNG (invalid pixels black) and the raw
   values as a TIFF, int16 staying int16 and anything else float32;
 * :func:`read_q_matrix`, :func:`reproject_image_to_3d`,
@@ -269,6 +271,33 @@ def load_stack_pair(folder0, folder1=None, stacksize: Optional[int] = None):
     if stacksize is not None and stacksize < l.shape[0]:
         l, r = l[:stacksize], r[:stacksize]
     return l, r
+
+
+def distribute_stack(stack, *, mesh):
+    """The row bands of a full host ``(n, H, W)`` stack (identical on every
+    process) that this process holds on ``mesh``: a
+    :class:`sharding.RowBands`, whose bands alone go to ``mesh.device``,
+    cut and zero-padded as ``sharding.match_sharded`` cuts a full stack. A
+    ``(batch, n, H, W)`` stack is folded into ``(n, batch*H, W)`` on the
+    host first, for ``sharding.match_batched_sharded``.
+
+    The counterpart of ``libbicos_tpu.io.distribute_stack``, which returns
+    one global row-sharded ``jax.Array``; the sharded entry points here
+    take the ``RowBands`` in place of the full stack."""
+    from .sharding import fold_host, row_bands
+
+    stack = np.asarray(stack)
+    if stack.ndim == 4:
+        return row_bands(fold_host(stack), mesh, batch=stack.shape[0])
+    return row_bands(stack, mesh)
+
+
+def load_multihost_stack(folder0, folder1=None, *, mesh, stacksize=None):
+    """Per-process sharded stack loading: every process reads the full
+    files (images are small) but puts only its own row bands on its device
+    (see :func:`distribute_stack`)."""
+    l, r = load_stack_pair(folder0, folder1, stacksize)
+    return distribute_stack(l, mesh=mesh), distribute_stack(r, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -66,20 +66,29 @@ def _as_tensor(x, device) -> torch.Tensor:
     return x.to(resolve_device(device, x)).contiguous()
 
 
-def _validate_inputs(stack0: torch.Tensor, stack1: torch.Tensor) -> None:
-    if stack0.dim() != 3 or stack1.dim() != 3:
+_DEPTHS = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.uint16}
+
+
+def check_stacks(shape0, shape1, dtype0, dtype1, cfg: Config,
+                 corrmap: bool) -> None:
+    """The checks of a request that need only its metadata, in ``match``'s
+    order: shapes, depths (torch or numpy dtypes), the stack size for
+    ``cfg.mode`` and corrmap's threshold. Raises ``ValueError``."""
+    dtype0, dtype1 = (_DEPTHS.get(d, d) if isinstance(d, np.dtype) else d
+                      for d in (dtype0, dtype1))
+    if len(shape0) != 3 or len(shape1) != 3:
         raise ValueError("stacks must have shape (n, H, W)")
-    if stack0.shape != stack1.shape:
+    if tuple(shape0) != tuple(shape1):
         raise ValueError(
-            f"stack shapes differ: {tuple(stack0.shape)} vs "
-            f"{tuple(stack1.shape)}")
-    if stack0.dtype != stack1.dtype:
+            f"stack shapes differ: {tuple(shape0)} vs {tuple(shape1)}")
+    if dtype0 != dtype1:
         raise ValueError("stack dtypes differ")
-    if stack0.dtype not in (torch.uint8, torch.uint16):
+    if dtype0 not in (torch.uint8, torch.uint16):
         raise ValueError(
             "bad input depths, only uint8 and uint16 are supported")
-    if stack0.device != stack1.device:
-        raise ValueError("stacks lie on different devices")
+    validate_stack(shape0[0], cfg.mode)
+    if corrmap and cfg.nxcorr_threshold is None:
+        raise ValueError("corrmap requires cfg.nxcorr_threshold")
 
 
 def _prepare(stack0, stack1, cfg: Config, corrmap: bool, backend: str,
@@ -91,10 +100,10 @@ def _prepare(stack0, stack1, cfg: Config, corrmap: bool, backend: str,
             f"backend must be one of {_search.BACKENDS}, got {backend!r}")
     stack0 = _as_tensor(stack0, device)
     stack1 = _as_tensor(stack1, device)
-    _validate_inputs(stack0, stack1)
-    validate_stack(stack0.shape[0], cfg.mode)
-    if corrmap and cfg.nxcorr_threshold is None:
-        raise ValueError("corrmap requires cfg.nxcorr_threshold")
+    if stack0.device != stack1.device:
+        raise ValueError("stacks lie on different devices")
+    check_stacks(stack0.shape, stack1.shape, stack0.dtype, stack1.dtype,
+                 cfg, corrmap)
     return stack0, stack1, _search.resolve_backend(backend, stack0, stack1)
 
 

@@ -87,7 +87,9 @@ def _hamming(w0: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
     cost = torch.zeros((r, wid0, c), dtype=torch.int32, device=w0.device)
     for k in range(nw):
         x = w0[:, :, None, k] ^ w1[:, None, :, k]
-        pop = table[x.view(torch.uint8).to(torch.int32)]
+        # reshape(-1): a size-1 last dim may carry any stride, which a
+        # dtype view refuses.
+        pop = table[x.reshape(-1).view(torch.uint8).to(torch.int32)]
         cost += pop.view(r, wid0, c, 4).sum(dim=-1, dtype=torch.int32)
     return cost
 

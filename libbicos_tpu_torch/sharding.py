@@ -31,14 +31,20 @@ A mesh's ``device`` is where its bands run. ``None`` (the default) means the
 current CUDA device, and raises without a card: pass ``device="cpu"`` for
 the CPU (gloo workers included).
 
-Every process passes the full stacks and gets the full ``(H, W)`` maps
-back, as the JAX surfaces take and return global arrays.
+Every process passes the full stacks, or only the row bands that it holds
+(:class:`RowBands`, from ``io.distribute_stack`` or :func:`row_bands`), and
+gets the full ``(H, W)`` maps back on every rank. The JAX surfaces take and
+return one global ``jax.Array`` whose shards stay on their devices; here
+each rank gathers the whole result (``mesh.all_gather``), which is what a
+caller of the JAX surface gets when it reads the array.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import pipeline as _pipeline
@@ -165,17 +171,100 @@ def _bands(x: torch.Tensor, dim: int, mesh) -> List[torch.Tensor]:
     return [parts[r].contiguous() for r in mesh.ranks]
 
 
+@dataclass(frozen=True)
+class RowBands:
+    """The row bands of one stack that this process holds on its mesh's
+    device: ``bands[j]`` is band ``mesh.ranks[j]`` of ``mesh.size``, an
+    ``(n, ceil(H / size), W)`` tensor cut and zero-padded as :func:`_bands`
+    cuts the full stack. ``shape`` is the full ``(n, H, W)``; ``batch`` is
+    the number of ``(n, H / batch, W)`` pairs folded into its rows (0 for a
+    plain stack)."""
+
+    bands: tuple
+    shape: tuple
+    batch: int = 0
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.bands[0].dtype
+
+
+def host_band(stack: np.ndarray, rank: int, size: int) -> np.ndarray:
+    """Row band ``rank`` of ``size`` of a host ``(n, H, W)`` array, zero
+    padded at the bottom as :func:`_bands` pads: a new array."""
+    n, h, w = stack.shape
+    band = -(-h // size)
+    part = stack[:, rank * band:(rank + 1) * band]
+    out = np.zeros((n, band, w), stack.dtype)
+    out[:, :part.shape[1]] = part
+    return out
+
+
+def row_bands(stack: np.ndarray, mesh, batch: int = 0) -> RowBands:
+    """The :class:`RowBands` of a full host ``(n, H, W)`` stack for
+    ``mesh``: only this process's bands are cut, and only they are moved
+    to ``mesh.device``. ``batch``: pairs folded into the rows
+    (:func:`fold_host`)."""
+    if stack.ndim != 3:
+        raise ValueError("stacks must have shape (n, H, W)")
+    bands = [torch.from_numpy(host_band(stack, r, mesh.size)).to(
+        mesh.device) for r in mesh.ranks]
+    return RowBands(tuple(bands), tuple(stack.shape), batch)
+
+
+def fold_host(stacks: np.ndarray) -> np.ndarray:
+    """``(batch, n, H, W)`` folded into ``(n, batch*H, W)`` on the host, as
+    :func:`pipeline._fold_batch` folds on the device."""
+    b, n, h, w = stacks.shape
+    return np.ascontiguousarray(
+        np.moveaxis(np.asarray(stacks), 0, 1)).reshape(n, b * h, w)
+
+
+def _prepare_bands(stack0, stack1, cfg: Config, corrmap: bool, backend: str,
+                   mesh):
+    """``_pipeline._prepare`` for :class:`RowBands`: the same checks on the
+    full shapes, then ``(bands0, bands1, resolved backend)`` on the mesh's
+    device."""
+    if backend not in _search.BACKENDS:
+        raise ValueError(
+            f"backend must be one of {_search.BACKENDS}, got {backend!r}")
+    if not (isinstance(stack0, RowBands) and isinstance(stack1, RowBands)):
+        raise ValueError("pass both stacks as RowBands, or neither")
+    _pipeline.check_stacks(stack0.shape, stack1.shape, stack0.dtype,
+                           stack1.dtype, cfg, corrmap)
+    if stack0.batch != stack1.batch:
+        raise ValueError(f"batch {stack0.batch} vs {stack1.batch}")
+    n, h, w = stack0.shape
+    want = (n, -(-h // mesh.size), w)
+    for s in (stack0, stack1):
+        if (len(s.bands) != len(mesh.ranks)
+                or any(tuple(b.shape) != want for b in s.bands)):
+            raise ValueError(
+                f"the row bands were not cut for this mesh: want "
+                f"{len(mesh.ranks)} bands of {want}")
+    bands0 = [b.to(mesh.device) for b in stack0.bands]
+    bands1 = [b.to(mesh.device) for b in stack1.bands]
+    return bands0, bands1, _search.resolve_backend(backend, *bands0,
+                                                   *bands1)
+
+
 def match_sharded(stack0, stack1, cfg: Config = Config(), *, mesh=None,
                   corrmap: bool = False, backend: str = "auto"):
     """H-banded ``match``: rows cut into ``mesh.size`` bands, each matched
     by :func:`pipeline.match`, the results gathered. Same arguments and
-    results as ``match``, plus ``mesh`` (default :func:`make_mesh`)."""
+    results as ``match``, plus ``mesh`` (default :func:`make_mesh`); the
+    stacks may also be this process's :class:`RowBands`."""
     mesh = make_mesh() if mesh is None else mesh
-    stack0, stack1, backend = _pipeline._prepare(
-        stack0, stack1, cfg, corrmap, backend, mesh.device)
+    if isinstance(stack0, RowBands) or isinstance(stack1, RowBands):
+        bands0, bands1, backend = _prepare_bands(stack0, stack1, cfg,
+                                                 corrmap, backend, mesh)
+    else:
+        stack0, stack1, backend = _pipeline._prepare(
+            stack0, stack1, cfg, corrmap, backend, mesh.device)
+        bands0, bands1 = _bands(stack0, 1, mesh), _bands(stack1, 1, mesh)
     h = stack0.shape[1]
     outs = []
-    for b0, b1 in zip(_bands(stack0, 1, mesh), _bands(stack1, 1, mesh)):
+    for b0, b1 in zip(bands0, bands1):
         out = _pipeline.match(b0, b1, cfg, corrmap=corrmap, backend=backend,
                               device=b0.device)
         outs.append(out if corrmap else (out, None))
@@ -190,8 +279,18 @@ def match_batched_sharded(stacks0, stacks1, cfg: Config = Config(), *,
                           backend: str = "auto"):
     """``(batch, n, H, W)`` pairs with the batch folded into the row axis
     (:func:`pipeline._fold_batch`) and the ``batch * H`` rows H-banded
-    (:func:`match_sharded`)."""
-    flat0, flat1, (b, h, w) = _pipeline._fold_batch(stacks0, stacks1)
+    (:func:`match_sharded`). The stacks may also be :class:`RowBands` of
+    folded pairs (``io.distribute_stack`` of a 4-d stack)."""
+    if isinstance(stacks0, RowBands) and isinstance(stacks1, RowBands):
+        if stacks0.batch < 1:
+            raise ValueError("batched RowBands come from a (batch, n, H, W) "
+                             "stack: io.distribute_stack of a 4-d stack")
+        b = stacks0.batch
+        _, bh, w = stacks0.shape
+        h = bh // b
+        flat0, flat1 = stacks0, stacks1
+    else:
+        flat0, flat1, (b, h, w) = _pipeline._fold_batch(stacks0, stacks1)
     out = match_sharded(flat0, flat1, cfg, mesh=mesh, corrmap=corrmap,
                         backend=backend)
     if corrmap:

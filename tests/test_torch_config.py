@@ -192,6 +192,8 @@ def test_import_leaves_jax_out():
         "import libbicos_tpu_torch.debug, libbicos_tpu_torch.profiling\n"
         "import libbicos_tpu_torch.pybicos_compat, libbicos_tpu_torch.cli\n"
         "import libbicos_tpu_torch._colormaps\n"
+        "import libbicos_tpu_torch.serve, libbicos_tpu_torch.client\n"
+        "import libbicos_tpu_torch.dryrun\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'libbicos_tpu')]\n"
         "assert not bad, bad\n"
@@ -201,5 +203,24 @@ def test_import_leaves_jax_out():
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_client_file_needs_only_numpy():
+    """``libbicos_tpu_torch/client.py`` loaded by path (as a scanner host
+    without torch would load a copy of it) imports neither torch nor jax."""
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'bicos_client', 'libbicos_tpu_torch/client.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert mod.BicosClient and mod.ServerError\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'libbicos_tpu', 'libbicos_tpu_torch')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -910,3 +910,104 @@ def test_cli_on_the_card_equals_cpu(dev, tmp_path):
                     for name in (f"{tag}.tiff", f"{tag}-corrmap.tiff")]
     (cd, cc), (pd, pc) = out["card"], out["cpu"]
     _assert_plain_bar(cd, cc, pd, pc)
+
+
+# ---------------------------------------------------------------------------
+# The serving daemon, multi-process loading and the dry run on the card.
+
+
+def test_serve_entry_points_raise_without_a_card(monkeypatch):
+    """Without a card, Engine() and serve.main([]) raise and name
+    --device cpu: no silent move to the CPU. (Runs on any machine: the
+    card's absence is simulated.)"""
+    from libbicos_tpu_torch import serve as tserve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tserve.Engine()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tserve.main([])
+
+
+def test_engine_on_the_card_equals_match(dev):
+    """An Engine on the card (its HTTP server and client included) answers
+    what ``match(backend="cuda")`` gives, through the kernels, from handler
+    threads whose current device it sets."""
+    import threading
+
+    from libbicos_tpu_torch.client import BicosClient
+    from libbicos_tpu_torch.serve import Engine, serve
+    from test_torch_multihost import _free_port
+
+    cfg = tb.Config(nxcorr_threshold=0.96, subpixel_step=0.1,
+                    min_variance=2.0)
+    engine = Engine(cfg, device=dev)
+    assert engine.device == dev
+    port = _free_port()
+    ready = threading.Event()
+    threading.Thread(target=serve, args=(engine, "127.0.0.1", port),
+                     kwargs={"warmup_shapes": [((33, 16, 400), "uint8")],
+                             "ready_event": ready}, daemon=True).start()
+    assert ready.wait(300)
+    client = BicosClient(f"http://127.0.0.1:{port}", timeout=300)
+    s0, s1, _ = synthetic_stack_pair(33, 16, 400, seed=12)
+    for params, variant, drange in (
+            ({}, tb.NoDuplicates(), None),
+            ({"lr_maxdiff": 1, "no_dupes": 1}, tb.Consistency(1, True), None),
+            ({"disp_range": "0:60"}, tb.NoDuplicates(), (0, 60))):
+        _build.reset_launch_counts()
+        got_d, got_c = client.match(s0, s1, corrmap=True, **params)
+        counts = _build.launch_counts()
+        assert counts["agree"] == 1 and counts["transform"] == 2, counts
+        c = tb.Config(nxcorr_threshold=0.96, subpixel_step=0.1,
+                      min_variance=2.0, variant=variant,
+                      disparity_range=drange)
+        want_d, want_c = tb.match(s0, s1, c, corrmap=True, backend="cuda")
+        _assert_bitwise(torch.from_numpy(got_d), want_d.cpu())
+        _assert_bitwise(torch.from_numpy(got_c), want_c.cpu())
+    b0, b1 = np.stack([s0, s0 ^ 3]), np.stack([s1, s1])
+    got_b = engine.match(b0, b1)
+    want_b = tb.match_batched(b0, b1, cfg, backend="cuda")
+    _assert_bitwise(torch.from_numpy(got_b), want_b.cpu())
+
+
+def test_engine_second_card_from_handler_threads(dev):
+    """An Engine on card 1 runs there from a new thread (whose current
+    device is 0)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    import threading
+
+    from libbicos_tpu_torch.serve import Engine
+
+    engine = Engine(tb.Config(nxcorr_threshold=0.5),
+                    device=torch.device("cuda", 1))
+    s0, s1, _ = synthetic_stack_pair(5, 8, 64, seed=2)
+    out = {}
+    t = threading.Thread(target=lambda: out.update(d=engine.match(s0, s1)))
+    t.start()
+    t.join(300)
+    want = tb.match(s0, s1, tb.Config(nxcorr_threshold=0.5),
+                    device=torch.device("cuda", 1))
+    assert torch.equal(torch.from_numpy(out["d"]), want.cpu())
+
+
+def test_serve_nccl_four_cards(dev, tmp_path):
+    """``serve --devices 4`` over NCCL (one card a process): rank 0 serves a
+    request equal to ``match`` on card 0; every rank exits 0 after SIGINT
+    to rank 0. Needs 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    from test_torch_multihost import run_serve
+
+    _build.library()  # once, before the four workers load it
+    run_serve(tmp_path, 4, "nccl", device="cuda:0")
+
+
+def test_dryrun_multichip_on_the_card(dev):
+    from libbicos_tpu_torch import dryrun
+
+    _build.reset_launch_counts()
+    dryrun.dryrun_multichip(4, device=dev)
+    counts = _build.launch_counts()
+    assert counts["band"] > 0 and counts["hamming"] > 0, counts
