@@ -56,11 +56,21 @@
    and G's shapes, the fused step with its plain version at F's, and each
    call's kernels are timed at its shapes beside the call.
 
-5. Runs the user surfaces on the card: the CLI (``python -m
-   libbicos_tpu_torch.cli``, a process of its own) on the headline input
-   written as 8-bit PNGs, with A's configuration (``-t 0.96 --limited -v
-   2.0 -s 0.1 --corrmap``), whose disparity TIFF must equal call A's bit
-   for bit and whose corrmap TIFF must lie within 4e-6 of it; two small
+5. Runs the user surfaces on the card. The native host layer
+   (``libbicos_tpu_torch/native``) must build and load. The headline input
+   is written as a scanner's folder (66 PNGs, ``cv2.imwrite`` at its
+   default settings) and decoded through ``native.decode_stack`` and
+   through the per-file path, both equal to the stacks, best of 3 each;
+   call A's disparity reprojected to ``.xyz`` through the native and the
+   Python writer, byte-equal, each timed. The CLI (``python -m
+   libbicos_tpu_torch.cli``, a process of its own) runs on that folder
+   with A's configuration (``-t 0.96 --limited -v 2.0 -s 0.1
+   --corrmap``); its disparity TIFF must equal call A's bit for bit and
+   its corrmap TIFF lie within 4e-6 of it, and its process seconds (cell
+   K) are set beside the CLI's steps timed in its order in two fresh
+   processes (imports, ``load_stack_pair``, the kernel library, upload,
+   first match, download, the two ``save_image`` calls, and each process's
+   start and exit); two small
    CLI cases (``-q`` with a Q matrix, ``-m 1 --no-dupes``), each equal to
    its in-process ``match``; ``profiling.stage_timings`` at A;
    ``pybicos_compat.match`` equal to ``match``; call A under
@@ -981,23 +991,31 @@ def write_q_yaml(path: Path, q) -> None:
                     f"   cols: 4\n   dt: d\n   data: [ {vals} ]\n")
 
 
-def run_cli(folder: Path, args, label: str) -> str:
-    """``python -m libbicos_tpu_torch.cli folder args`` in a process of its
-    own; returns its stdout, fails the run unless it exits 0."""
+def repo_env() -> dict:
+    """This process's environment with the checkout first on PYTHONPATH."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
+    return env
+
+
+def run_cli(folder: Path, args, label: str) -> tuple:
+    """``python -m libbicos_tpu_torch.cli folder args`` in a process of its
+    own; returns its stdout and its seconds, fails the run unless it exits
+    0."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "libbicos_tpu_torch.cli", str(folder), *args],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        cwd=REPO, env=repo_env(), capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
     if proc.returncode != 0:
         fail(f"CLI {label} exited {proc.returncode}:\n{proc.stdout[-2000:]}"
              f"\n{proc.stderr[-3000:]}")
-    print(f"  CLI {label}: exit 0 in {time.perf_counter() - t0:.1f} s "
+    print(f"  CLI {label}: exit 0 in {secs:.3f} s "
           "(process start, loading and saving included)", flush=True)
-    return proc.stdout
+    return proc.stdout, secs
 
 
 def write_stack_folder(folder: Path, s0, s1) -> None:
@@ -1007,9 +1025,246 @@ def write_stack_folder(folder: Path, s0, s1) -> None:
         write_png_gray8(folder / f"{i}_right.png", s1[i])
 
 
+# The reprojection matrix of phase 5's .xyz cases: z = 500 / (0.1 d) > 0
+# for every positive disparity.
+SMOKE_Q = ((1, 0, 0, -128.0), (0, 1, 0, -24.0), (0, 0, 0, 500.0),
+           (0, 0, 1 / 0.1, 0))
+HEADLINE_ARGS = ("-t", str(THRESHOLD), "--limited", "-v", str(MIN_VARIANCE),
+                 "-s", str(STEP), "--corrmap")
+
+# Cell K's steps in a fresh process, in the CLI's order (``cli._run``):
+# argv: folder, output stem. Prints one JSON object of seconds per step.
+K_STEPS = """
+import time
+started = time.time()
+import json, sys
+t = {}
+tick = time.perf_counter()
+import torch
+t["import torch"] = time.perf_counter() - tick
+tick = time.perf_counter()
+import libbicos_tpu_torch
+from libbicos_tpu_torch import cli, io, pipeline
+t["import libbicos_tpu_torch (after torch)"] = time.perf_counter() - tick
+folder, stem = sys.argv[1], sys.argv[2]
+cfg = cli.config_from_args(cli.build_parser().parse_args(
+    [folder, *sys.argv[3:]]))
+tick = time.perf_counter()
+l, r = io.load_stack_pair(folder)
+t["load_stack_pair"] = time.perf_counter() - tick
+tick = time.perf_counter()
+from libbicos_tpu_torch.kernels import _build
+_build.library()
+t["kernel library (load, build cached)"] = time.perf_counter() - tick
+dev = pipeline.resolve_device(None)
+tick = time.perf_counter()
+ld = torch.from_numpy(l).to(dev)
+rd = torch.from_numpy(r).to(dev)
+torch.cuda.synchronize(dev)
+t["upload (CUDA context included)"] = time.perf_counter() - tick
+tick = time.perf_counter()
+disp, corr = pipeline.match(ld, rd, cfg, corrmap=True, device=dev)
+torch.cuda.synchronize(dev)
+t["first match"] = time.perf_counter() - tick
+tick = time.perf_counter()
+disp, corr = disp.cpu().numpy(), corr.cpu().numpy()
+t["download"] = time.perf_counter() - tick
+tick = time.perf_counter()
+io.save_image(disp, stem + ".png")
+t["save_image disparity"] = time.perf_counter() - tick
+tick = time.perf_counter()
+io.save_image(corr, stem + "-corrmap.png", colormap="viridis")
+t["save_image corrmap"] = time.perf_counter() - tick
+print(json.dumps({"steps": t, "started": started, "ended": time.time()}))
+"""
+
+
+def png_filter_counts(path: Path) -> list:
+    """Rows of each PNG filter type (None, Sub, Up, Average, Paeth) in an
+    8-bit grayscale PNG."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data, pos, idat, w = path.read_bytes(), 8, [], None
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        if kind == b"IHDR":
+            (w,) = struct.unpack(">I", data[pos + 8:pos + 12])
+        elif kind == b"IDAT":
+            idat.append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    return np.bincount(raw.reshape(-1, w + 1)[:, 0], minlength=5).tolist()
+
+
+def best_of(n: int, fn) -> tuple:
+    """``(result of the last run, least seconds)`` of ``n`` runs of
+    ``fn()``."""
+    best = None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        secs = time.perf_counter() - t0
+        best = secs if best is None else min(best, secs)
+    return out, best
+
+
+def native_phase(torch, s0n, s1n, want_a, work: Path, card) -> dict:
+    """Phase 5 (a)-(c): the native library loads; the headline stacks,
+    written by ``cv2.imwrite`` at its default PNG settings into
+    ``work/headline`` (cell K's input), decode equal to the stacks through
+    ``native.decode_stack`` and through the per-file path; call A's
+    disparity, reprojected with ``SMOKE_Q``, gives the same ``.xyz`` bytes
+    through the native and the Python writer. Each timed."""
+    import contextlib
+    import filecmp
+    import io as _stdio
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    try:
+        import cv2
+    except ImportError:
+        fail("phase 5: cv2 does not import; the scanner folder is cv2's")
+    from libbicos_tpu_torch import io as tio
+    from libbicos_tpu_torch import native
+
+    # Built here from the checkout's source, whatever _build/ holds.
+    t0 = time.perf_counter()
+    built = native.build(force=True)
+    build_s = time.perf_counter() - t0
+    if built is None or native.get() is None:
+        fail("phase 5: the native library (libbicos_tpu_torch/native/"
+             "fastio.cpp) did not build or load")
+    print(f"  native: {built.relative_to(REPO)} built by g++ from "
+          f"libbicos_tpu_torch/native/fastio.cpp (zlib, no libpng) in "
+          f"{build_s:.3f} s and loaded ({card})", flush=True)
+
+    folder = work / "headline"
+    folder.mkdir(parents=True)
+    n = s0n.shape[0]
+    jobs = [(folder / f"{i}_{side}.png", s[i]) for i in range(n)
+            for side, s in (("left", s0n), ("right", s1n))]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        if not all(pool.map(lambda job: cv2.imwrite(str(job[0]), job[1]),
+                            jobs)):
+            fail("phase 5: cv2.imwrite failed")
+    filters = png_filter_counts(folder / "0_left.png")
+    disk = sum(p.stat().st_size for p, _ in jobs)
+    print(f"  scanner folder: {len(jobs)} PNGs written by cv2 "
+          f"{cv2.__version__} at its default settings in "
+          f"{time.perf_counter() - t0:.3f} s ({disk / 1e6:.1f} MB on disk); "
+          f"rows of filter None/Sub/Up/Average/Paeth in 0_left.png: "
+          f"{filters}", flush=True)
+
+    left = [folder / f"{i}_left.png" for i in range(n)]
+    right = [folder / f"{i}_right.png" for i in range(n)]
+    threads = native.threads_for(n)
+    (nl, nr), native_s = best_of(3, lambda: (native.decode_stack(left),
+                                             native.decode_stack(right)))
+    (pl, pr), plain_s = best_of(3, lambda: tuple(
+        np.stack([tio._imread_gray_anydepth(p) for p in ps])
+        for ps in (left, right)))
+    if nl is None or nr is None:
+        fail("phase 5: native.decode_stack refused the cv2-written folder")
+    for got, want, what in ((nl, s0n, "left"), (nr, s1n, "right"),
+                            (pl, s0n, "left"), (pr, s1n, "right")):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            fail(f"phase 5: a decoded {what} stack differs from the input")
+    pixels = s0n.nbytes + s1n.nbytes
+    print(f"  decode of the {len(jobs)} PNGs ({pixels / 1e6:.1f} MB of "
+          f"pixels), best of 3: native.decode_stack {native_s:.3f} s on "
+          f"{threads} threads ({pixels / 1e6 / native_s:.0f} MB/s), per-file "
+          f"cv2.imread {plain_s:.3f} s ({pixels / 1e6 / plain_s:.0f} MB/s); "
+          f"both equal to the stacks ({card})", flush=True)
+
+    disp = want_a[0].cpu().numpy()
+    points = tio.reproject_image_to_3d(disp, np.array(SMOKE_Q))
+    times, counts = {}, {}
+    for path in ("native", "python"):
+        if path == "python":
+            os.environ["BICOS_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(_stdio.StringIO()):
+                counts[path] = tio.save_pointcloud(points, disp,
+                                                   work / f"{path}.xyz")
+            times[path] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("BICOS_NO_NATIVE", None)
+    expect = int((~np.isnan(disp) & (disp > 0)).sum())
+    if not (counts["native"] == counts["python"] == expect and filecmp.cmp(
+            work / "native.xyz", work / "python.xyz", shallow=False)):
+        fail(f"phase 5: the .xyz writers differ: {counts}, expected {expect}"
+             " points, byte-equal files")
+    size = (work / "native.xyz").stat().st_size
+    for path in ("native", "python"):
+        (work / f"{path}.xyz").unlink()
+    print(f"  .xyz of call A's disparity ({expect} points, {size / 1e6:.1f} "
+          f"MB): save_pointcloud with the native writer {times['native']:.3f}"
+          f" s, with the Python writer (BICOS_NO_NATIVE=1) "
+          f"{times['python']:.3f} s; byte-equal ({card})", flush=True)
+    return {"build_s": build_s, "threads": threads, "pixel_bytes": pixels,
+            "decode_native_s": native_s, "decode_per_file_s": plain_s,
+            "png_filters_0_left": filters, "xyz_points": expect,
+            "xyz_native_s": times["native"], "xyz_python_s": times["python"]}
+
+
+def k_steps(folder: Path, stem: Path, k_secs: float, card) -> dict:
+    """Phase 5 (d): cell K's steps, timed in the CLI's order in a fresh
+    process (twice, to show their spread), against the CLI's own process
+    seconds ``k_secs``; each process's start-up (spawn to its first line)
+    and exit (its last line to its end) from the wall clock."""
+    runs = []
+    for _ in range(2):
+        spawned = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", K_STEPS, str(folder), str(stem),
+             *HEADLINE_ARGS], cwd=REPO, env=repo_env(), capture_output=True,
+            text=True, timeout=600)
+        done = time.time()
+        if proc.returncode != 0:
+            fail(f"phase 5: the K step timing exited {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append({"steps_s": out["steps"], "wall_s": done - spawned,
+                     "start_s": out["started"] - spawned,
+                     "exit_s": done - out["ended"]})
+    print(f"  K, attributed: the CLI's process took {k_secs:.3f} s; its "
+          "steps in its order, in two fresh processes:", flush=True)
+    for name in runs[0]["steps_s"]:
+        print(f"    {name}: " + ", ".join(f"{r['steps_s'][name]:.3f}"
+                                          for r in runs) + " s", flush=True)
+    for what in ("start", "exit"):
+        print(f"    process {what}: " + ", ".join(
+            f"{r[what + '_s']:.3f}" for r in runs) + " s", flush=True)
+    for r in runs:
+        r["sum_s"] = sum(r["steps_s"].values())
+        r["rest_s"] = r["wall_s"] - r["sum_s"] - r["start_s"] - r["exit_s"]
+    print("    sum of the steps " + ", ".join(f"{r['sum_s']:.3f}"
+                                              for r in runs)
+          + " s; each process's wall " + ", ".join(
+              f"{r['wall_s']:.3f}" for r in runs)
+          + " s, outside its steps, start and exit " + ", ".join(
+              f"{r['rest_s']:.3f}" for r in runs) + " s", flush=True)
+    first = runs[0]
+    unexplained = k_secs - first["sum_s"] - first["start_s"] - first["exit_s"]
+    print(f"    left unexplained in K (less the first run's steps, start "
+          f"and exit): {unexplained:.3f} s ({card})", flush=True)
+    return {"k_process_s": k_secs, "runs": runs,
+            "unexplained_s": unexplained}
+
+
 def cli_phase(torch, s0n, s1n, want_a, card) -> dict:
-    """The CLI at the headline size, equal to call A; two small cases
-    (``-q`` and ``-m 1 --no-dupes``) equal to their in-process calls."""
+    """The native layer and the CLI at the headline size on a scanner's
+    folder (cv2-written PNGs), the CLI equal to call A and its process time
+    attributed step by step; two small cases (``-q`` and ``-m 1
+    --no-dupes``) equal to their in-process calls."""
     import shutil
 
     import numpy as np
@@ -1020,14 +1275,9 @@ def cli_phase(torch, s0n, s1n, want_a, card) -> dict:
     work = REPO / "_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        t0 = time.perf_counter()
-        write_stack_folder(work / "headline", s0n, s1n)
-        print(f"  CLI input: {2 * s0n.shape[0]} PNGs written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        out = run_cli(work / "headline", [
-            "-t", str(THRESHOLD), "--limited", "-v", str(MIN_VARIANCE), "-s",
-            str(STEP), "--corrmap", "-o", str(work / "disp.png")],
-            "headline")
+        native_info = native_phase(torch, s0n, s1n, want_a, work, card)
+        out, k_secs = run_cli(work / "headline", [
+            *HEADLINE_ARGS, "-o", str(work / "disp.png")], "headline")
         latency = next((line for line in out.splitlines()
                         if line.startswith("Latency")), None)
         if latency is None:
@@ -1045,12 +1295,11 @@ def cli_phase(torch, s0n, s1n, want_a, card) -> dict:
             fail("the CLI's corrmap TIFF is not within 4e-6 of call A's")
         print("  CLI headline: disparity TIFF equal to call A bit for bit "
               "(NaN mask included), corrmap within 4e-6", flush=True)
+        k = k_steps(work / "headline", work / "steps", k_secs, card)
 
         x0, x1, _ = synthetic_stack_pair(9, 48, 256, seed=17)
         write_stack_folder(work / "small", x0, x1)
-        q = np.array([[1, 0, 0, -128.0], [0, 1, 0, -24.0], [0, 0, 0, 500.0],
-                      [0, 0, 1 / 0.1, 0]])
-        write_q_yaml(work / "Q.yaml", q)
+        write_q_yaml(work / "Q.yaml", np.array(SMOKE_Q))
         run_cli(work / "small", ["-t", "0.5", "--limited", "-s", "0.25",
                                  "-q", str(work / "Q.yaml"), "-o",
                                  str(work / "q.png")], "-q")
@@ -1059,8 +1308,8 @@ def cli_phase(torch, s0n, s1n, want_a, card) -> dict:
             nxcorr_threshold=0.5, subpixel_step=0.25), backend="cuda").cpu()
         if not same_bits(torch, torch.from_numpy(dq), want):
             fail("the CLI's -q disparity differs from match's")
-        # cv::reprojectImageTo3D with this Q: z = 500 / (0.1 d) > 0 for the
-        # valid pixels of positive disparity.
+        # cv::reprojectImageTo3D with SMOKE_Q: z > 0 for the valid pixels of
+        # positive disparity.
         lines = (work / "q.xyz").read_text().splitlines()
         valid = ~np.isnan(dq)
         expect = int((valid & (dq > 0)).sum())
@@ -1079,7 +1328,8 @@ def cli_phase(torch, s0n, s1n, want_a, card) -> dict:
         print(f"  CLI small cases (n=9 48x256): -q wrote {len(lines)} points "
               "and its disparity equals match's; -m 1 --no-dupes (FULL, "
               "threshold 0.75) equals match's", flush=True)
-        return {"latency_line": latency.strip(), "xyz_points": len(lines)}
+        return {"latency_line": latency.strip(), "xyz_points": len(lines),
+                "native": native_info, "k": k}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -140,3 +140,8 @@ def unpack_words(words: torch.Tensor, num_bits: int) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
     bits = (words[..., None] >> shifts) & 1
     return bits.reshape(h, w, nw * 32)[..., :num_bits].to(torch.bool)
+
+
+def popcounts(bits: torch.Tensor) -> torch.Tensor:
+    """Per-pixel descriptor popcount ``(H, W)`` int32 (sum of bit planes)."""
+    return bits.to(torch.int32).sum(dim=-1, dtype=torch.int32)

@@ -27,6 +27,13 @@ colorized PNGs from the colour tables in
 YAML that ``cv::FileStorage`` writes, and the reprojection in numpy. It
 raises on a colour, palette, low-depth or interlaced PNG rather than
 return wrong pixels.
+
+The native layer (:mod:`libbicos_tpu_torch.native`) comes first, as in
+the JAX module: a folder of PNGs is decoded at once on a pool of threads
+into one stack, and ``.xyz`` files are written by its C++ writer. Where it
+returns None (no ``g++``, ``BICOS_NO_NATIVE`` set, or a PNG it leaves to
+the codecs above) the per-file path and the Python writer run, with the
+same results.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ try:
     _HAS_CV2 = True
 except ImportError:
     _HAS_CV2 = False
+
+from . import native
 
 INVALID_DISP_INT16 = np.int16(-32768)
 
@@ -217,6 +226,18 @@ def _leading_index(fname: str) -> int:
     return int(m.group(1))
 
 
+def _decode_seq(entries: List[Tuple[int, Path]]
+                ) -> List[Tuple[int, np.ndarray]]:
+    """Decode ``(index, path)`` entries: all PNGs at once on the native
+    threaded decoder (``native.decode_stack``) where it takes them, else
+    file by file."""
+    if entries and all(str(p).lower().endswith(".png") for _, p in entries):
+        stack = native.decode_stack([p for _, p in entries])
+        if stack is not None:
+            return [(idx, stack[i]) for i, (idx, _) in enumerate(entries)]
+    return [(idx, _imread_gray_anydepth(p)) for idx, p in entries]
+
+
 def read_sequence(
     folder0,
     folder1=None,
@@ -250,8 +271,7 @@ def read_sequence(
             f"Unequal number of images; left: {len(lpaths)}, "
             f"right: {len(rpaths)}"
         )
-    return ([(i, _imread_gray_anydepth(p)) for i, p in lpaths],
-            [(i, _imread_gray_anydepth(p)) for i, p in rpaths])
+    return _decode_seq(lpaths), _decode_seq(rpaths)
 
 
 def sort_sequence_to_stack(
@@ -426,15 +446,12 @@ def save_pointcloud(points, disparity, outfile,
     outfile = Path(outfile).with_suffix(".xyz")
     valid = ~_invalid_mask(disp)
     finite = np.isfinite(points).all(axis=1)
-    ok = valid & finite
-    if not allow_negative_z:
-        ok &= points[:, 2] >= 0
-    kept = points[ok].astype(np.float64)
-    with open(outfile, "w") as f:
-        for i in range(0, kept.shape[0], _XYZ_ROWS):
-            part = kept[i:i + _XYZ_ROWS]
-            f.write(("%g %g %g\n" * part.shape[0]) % tuple(part.ravel()
-                                                           .tolist()))
+    # The native writer first, with every invalid disparity folded into NaN.
+    dispf = disp.astype(np.float32)
+    dispf[~valid] = np.nan
+    n = native.write_xyz(outfile, points, dispf, allow_negative_z)
+    if n is None:
+        n = _write_xyz(outfile, points, valid & finite, allow_negative_z)
     n_nonfinite = int((valid & ~finite).sum())
     n_negative_z = 0
     if not allow_negative_z:
@@ -446,6 +463,21 @@ def save_pointcloud(points, disparity, outfile,
     if n_negative_z:
         print(f"Skipped {n_negative_z} points with negative Z values",
               file=sys.stderr)
+    return n
+
+
+def _write_xyz(outfile: Path, points: np.ndarray, ok: np.ndarray,
+               allow_negative_z: bool) -> int:
+    """The ``.xyz`` text without the native writer: the points where ``ok``
+    and, unless ``allow_negative_z``, ``z >= 0``. Returns their number."""
+    if not allow_negative_z:
+        ok = ok & (points[:, 2] >= 0)
+    kept = points[ok].astype(np.float64)
+    with open(outfile, "w") as f:
+        for i in range(0, kept.shape[0], _XYZ_ROWS):
+            part = kept[i:i + _XYZ_ROWS]
+            f.write(("%g %g %g\n" * part.shape[0]) % tuple(part.ravel()
+                                                           .tolist()))
     return int(kept.shape[0])
 
 

@@ -45,7 +45,7 @@ from .config import (
     TransformMode,
     validate_stack,
 )
-from .descriptor import descriptor_words
+from .descriptor import descriptor_words, pack_bits
 
 INVALID_I16 = -32768
 PACK_K = 32768
@@ -349,6 +349,16 @@ def search_words(words0: torch.Tensor, words1: torch.Tensor, nbits: int,
         return _finish_gathered(variant, first0, last0, rc0, rc0_last)
     return _finish_consistency(
         *_two_pass(words0, words1, variant.no_dupes, drange), variant)
+
+
+def search(bits0: torch.Tensor, bits1: torch.Tensor, variant: SearchVariant,
+           backend: str = "auto") -> torch.Tensor:
+    """Correspondence search on ``(H, W, B)`` bool bit planes -> ``(H, W0)``
+    int16 disparity (-32768 invalid): :func:`search_words` on the packed
+    planes. The pipeline calls :func:`search_words` or
+    :func:`search_stack` directly."""
+    return search_words(pack_bits(bits0), pack_bits(bits1), bits0.shape[-1],
+                        variant, backend)
 
 
 def search_stack(stack0: torch.Tensor, stack1: torch.Tensor,

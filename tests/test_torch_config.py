@@ -194,6 +194,7 @@ def test_import_leaves_jax_out():
         "import libbicos_tpu_torch._colormaps\n"
         "import libbicos_tpu_torch.serve, libbicos_tpu_torch.client\n"
         "import libbicos_tpu_torch.dryrun\n"
+        "import libbicos_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'libbicos_tpu')]\n"
         "assert not bad, bad\n"
