@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..config import TransformMode
+from ..profiling import span
 from ..search import row_minima_consistency_torch_words
 from . import _build
 from .hamming import check_words, range_args
@@ -39,36 +40,37 @@ def row_minima_consistency_words(words0: torch.Tensor, words1: torch.Tensor,
     """Consistency scan from ``(H, W0, nw)`` and ``(H, W1, nw)`` int32
     words. CPU tensors go through the plain version; CUDA tensors launch
     the kernel."""
-    if words0.device.type == "cpu" and words1.device.type == "cpu":
-        first0, last0, rc0, rc0_last = row_minima_consistency_torch_words(
-            words0, words1, no_dupes, drange)
+    with span("bicos.scan"):
+        if words0.device.type == "cpu" and words1.device.type == "cpu":
+            first0, last0, rc0, rc0_last = row_minima_consistency_torch_words(
+                words0, words1, no_dupes, drange)
+            return (None, first0, last0), (None, rc0, rc0_last)
+        h, w0, w1, nw = check_words("row_minima_consistency_words", words0,
+                                    words1)
+        has_range, dmin, dmax = range_args(drange, w0, w1)
+        dev = words0.device
+        lib = _build.library()
+        need = lib.bicos_consistency_needs_scratch(dev.index, w1, nw,
+                                                   int(no_dupes))
+        if need < 0:
+            _build.check(-need, "consistency")
+        scratch = (torch.empty((h, 2, w1), dtype=torch.int32, device=dev)
+                   if need else None)
+        first0 = torch.empty((h, w0), dtype=torch.int32, device=dev)
+        rc0 = torch.empty_like(first0)
+        last0 = torch.empty_like(first0) if no_dupes else None
+        rc0_last = torch.empty_like(first0) if no_dupes else None
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        rc = lib.bicos_consistency(
+            dev.index, words0.data_ptr(), words1.data_ptr(), ptr(first0),
+            ptr(last0), ptr(rc0), ptr(rc0_last), ptr(scratch), h, w0, w1, nw,
+            int(no_dupes), has_range, dmin, dmax, _build.stream_of(words0))
+        _build.check(rc, "consistency")
+        _build.count_launch("consistency")
         return (None, first0, last0), (None, rc0, rc0_last)
-    h, w0, w1, nw = check_words("row_minima_consistency_words", words0,
-                                words1)
-    has_range, dmin, dmax = range_args(drange, w0, w1)
-    dev = words0.device
-    lib = _build.library()
-    need = lib.bicos_consistency_needs_scratch(dev.index, w1, nw,
-                                               int(no_dupes))
-    if need < 0:
-        _build.check(-need, "consistency")
-    scratch = (torch.empty((h, 2, w1), dtype=torch.int32, device=dev)
-               if need else None)
-    first0 = torch.empty((h, w0), dtype=torch.int32, device=dev)
-    rc0 = torch.empty_like(first0)
-    last0 = torch.empty_like(first0) if no_dupes else None
-    rc0_last = torch.empty_like(first0) if no_dupes else None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    rc = lib.bicos_consistency(
-        dev.index, words0.data_ptr(), words1.data_ptr(), ptr(first0),
-        ptr(last0), ptr(rc0), ptr(rc0_last), ptr(scratch), h, w0, w1, nw,
-        int(no_dupes), has_range, dmin, dmax, _build.stream_of(words0))
-    _build.check(rc, "consistency")
-    _build.count_launch("consistency")
-    return (None, first0, last0), (None, rc0, rc0_last)
 
 
 def row_minima_consistency_stack(stack0: torch.Tensor, stack1: torch.Tensor,

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import TransformMode
+from ..profiling import span
 from ..search import row_minima_torch_words
 from . import _build
 from .transform import descriptor_words_cuda
@@ -73,22 +74,23 @@ def row_minima_words(
     ``words0``: ``(H, W0, nw)`` int32, ``words1``: ``(H, W1, nw)`` int32.
     CPU tensors go through the plain scan; CUDA tensors launch the
     kernel."""
-    if words0.device.type == "cpu" and words1.device.type == "cpu":
-        _, first, last = row_minima_torch_words(words0, words1, need_last,
-                                                drange=drange)
+    with span("bicos.scan"):
+        if words0.device.type == "cpu" and words1.device.type == "cpu":
+            _, first, last = row_minima_torch_words(words0, words1, need_last,
+                                                    drange=drange)
+            return first, last
+        h, w0, w1, nw = check_words("row_minima_words", words0, words1)
+        has_range, dmin, dmax = range_args(drange, w0, w1)
+        first = torch.empty((h, w0), dtype=torch.int32, device=words0.device)
+        last = torch.empty_like(first) if need_last else None
+        rc = _build.library().bicos_row_minima(
+            words0.device.index, words0.data_ptr(), words1.data_ptr(),
+            first.data_ptr(), last.data_ptr() if need_last else None,
+            h, w0, w1, nw, int(need_last), has_range, dmin, dmax,
+            _build.stream_of(words0))
+        _build.check(rc, "hamming")
+        _build.count_launch("hamming")
         return first, last
-    h, w0, w1, nw = check_words("row_minima_words", words0, words1)
-    has_range, dmin, dmax = range_args(drange, w0, w1)
-    first = torch.empty((h, w0), dtype=torch.int32, device=words0.device)
-    last = torch.empty_like(first) if need_last else None
-    rc = _build.library().bicos_row_minima(
-        words0.device.index, words0.data_ptr(), words1.data_ptr(),
-        first.data_ptr(), last.data_ptr() if need_last else None,
-        h, w0, w1, nw, int(need_last), has_range, dmin, dmax,
-        _build.stream_of(words0))
-    _build.check(rc, "hamming")
-    _build.count_launch("hamming")
-    return first, last
 
 
 def row_minima_stack(stack0: torch.Tensor, stack1: torch.Tensor, *,

@@ -12,6 +12,7 @@ import torch
 
 from .. import descriptor as _descriptor
 from ..config import TransformMode, validate_stack
+from ..profiling import span
 from . import _build
 
 
@@ -21,21 +22,23 @@ def descriptor_words_cuda(stack: torch.Tensor,
 
     A CPU tensor goes through the plain version; a CUDA tensor launches
     the kernel."""
-    if stack.device.type == "cpu":
-        return _descriptor.descriptor_words(stack, mode)
-    _build.require_cuda("descriptor_words_cuda", stack)
-    if stack.dim() != 3 or stack.dtype not in (torch.uint8, torch.uint16):
-        raise ValueError("stack must be an (n, H, W) uint8 or uint16 tensor")
-    n, h, w = stack.shape
-    nbits = validate_stack(n, mode)
-    nw = _descriptor.n_words_for(nbits)
-    words = torch.empty((h, w, nw), dtype=torch.int32, device=stack.device)
-    if h * w == 0:
+    with span("bicos.transform"):
+        if stack.device.type == "cpu":
+            return _descriptor.descriptor_words(stack, mode)
+        _build.require_cuda("descriptor_words_cuda", stack)
+        if stack.dim() != 3 or stack.dtype not in (torch.uint8, torch.uint16):
+            raise ValueError(
+                "stack must be an (n, H, W) uint8 or uint16 tensor")
+        n, h, w = stack.shape
+        nbits = validate_stack(n, mode)
+        nw = _descriptor.n_words_for(nbits)
+        words = torch.empty((h, w, nw), dtype=torch.int32, device=stack.device)
+        if h * w == 0:
+            return words
+        rc = _build.library().bicos_transform(
+            stack.device.index, stack.data_ptr(), words.data_ptr(), n, h, w,
+            int(stack.dtype == torch.uint16), int(mode == TransformMode.FULL),
+            nw, _build.stream_of(stack))
+        _build.check(rc, "transform")
+        _build.count_launch("transform")
         return words
-    rc = _build.library().bicos_transform(
-        stack.device.index, stack.data_ptr(), words.data_ptr(), n, h, w,
-        int(stack.dtype == torch.uint16), int(mode == TransformMode.FULL),
-        nw, _build.stream_of(stack))
-    _build.check(rc, "transform")
-    _build.count_launch("transform")
-    return words

@@ -36,6 +36,7 @@ import torch
 from . import agree as _agree
 from . import search as _search
 from .config import Config, Precision, validate_stack
+from .profiling import span
 
 
 def resolve_device(device, like: Optional[torch.Tensor] = None
@@ -95,16 +96,18 @@ def _prepare(stack0, stack1, cfg: Config, corrmap: bool, backend: str,
              device):
     """The checks every matching surface makes, in ``match``'s order:
     ``(stack0, stack1, resolved backend)`` on the run's device."""
-    if backend not in _search.BACKENDS:
-        raise ValueError(
-            f"backend must be one of {_search.BACKENDS}, got {backend!r}")
-    stack0 = _as_tensor(stack0, device)
-    stack1 = _as_tensor(stack1, device)
-    if stack0.device != stack1.device:
-        raise ValueError("stacks lie on different devices")
-    check_stacks(stack0.shape, stack1.shape, stack0.dtype, stack1.dtype,
-                 cfg, corrmap)
-    return stack0, stack1, _search.resolve_backend(backend, stack0, stack1)
+    with span("bicos.prepare"):
+        if backend not in _search.BACKENDS:
+            raise ValueError(
+                f"backend must be one of {_search.BACKENDS}, got {backend!r}")
+        stack0 = _as_tensor(stack0, device)
+        stack1 = _as_tensor(stack1, device)
+        if stack0.device != stack1.device:
+            raise ValueError("stacks lie on different devices")
+        check_stacks(stack0.shape, stack1.shape, stack0.dtype, stack1.dtype,
+                     cfg, corrmap)
+        return stack0, stack1, _search.resolve_backend(backend, stack0,
+                                                       stack1)
 
 
 def _agree_window_params(stack0, cfg: Config):
@@ -132,35 +135,37 @@ def agree_stage(disp, stack0, stack1, cfg: Config, backend: str,
     :func:`agree.agree_subpixel`). ``window = (chunk, wcap, wp)`` runs the
     kernel's dynamic window with bases computed here from ``disp``; the
     plain backend reads any column and ignores it."""
-    minvar = (None if cfg.min_variance is None
-              else cfg.min_variance * stack0.shape[0])
-    step = cfg.subpixel_step
-    if backend == "cuda":
-        from .kernels.agree import agree_cuda
+    with span("bicos.agree"):
+        minvar = (None if cfg.min_variance is None
+                  else cfg.min_variance * stack0.shape[0])
+        step = cfg.subpixel_step
+        if backend == "cuda":
+            from .kernels.agree import agree_cuda
 
-        chunk = wcap = 0
-        bases = None
-        if window is not None:
-            from .kernels.bases import chunk_window_bases_cuda
+            chunk = wcap = 0
+            bases = None
+            if window is not None:
+                from .kernels.bases import chunk_window_bases_cuda
 
-            chunk, wcap, wp = window
-            bases = chunk_window_bases_cuda(disp, stack0.shape[2], wp, wcap,
-                                            chunk)
-        out_f, corr = agree_cuda(disp, stack0, stack1, cfg.nxcorr_threshold,
-                                 step, minvar, col_offset, bases=bases,
-                                 chunk=chunk, wcap=wcap,
-                                 precision=cfg.precision)
-        if step is not None:
-            return out_f, corr
-        return torch.where(
-            torch.isnan(out_f), _agree.INVALID_I16,
-            torch.nan_to_num(out_f).to(torch.int32)).to(torch.int16), corr
-    if step is not None:
-        return _agree.agree_subpixel(disp, stack0, stack1,
+                chunk, wcap, wp = window
+                bases = chunk_window_bases_cuda(disp, stack0.shape[2], wp,
+                                                wcap, chunk)
+            out_f, corr = agree_cuda(disp, stack0, stack1,
                                      cfg.nxcorr_threshold, step, minvar,
-                                     col_offset, cfg.precision)
-    return _agree.agree_integer(disp, stack0, stack1, cfg.nxcorr_threshold,
-                                minvar, col_offset, cfg.precision)
+                                     col_offset, bases=bases, chunk=chunk,
+                                     wcap=wcap, precision=cfg.precision)
+            if step is not None:
+                return out_f, corr
+            return torch.where(
+                torch.isnan(out_f), _agree.INVALID_I16,
+                torch.nan_to_num(out_f).to(torch.int32)).to(torch.int16), corr
+        if step is not None:
+            return _agree.agree_subpixel(disp, stack0, stack1,
+                                         cfg.nxcorr_threshold, step, minvar,
+                                         col_offset, cfg.precision)
+        return _agree.agree_integer(disp, stack0, stack1,
+                                    cfg.nxcorr_threshold, minvar, col_offset,
+                                    cfg.precision)
 
 
 def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
@@ -180,30 +185,34 @@ def match(stack0, stack1, cfg: Config = Config(), *, corrmap: bool = False,
     Returns:
       ``disparity`` on the run's device, or ``(disparity, corrmap)``.
     """
-    stack0, stack1, backend = _prepare(stack0, stack1, cfg, corrmap,
-                                       backend, device)
-    disp = _search.search_stack(stack0, stack1, cfg.mode, cfg.variant,
-                                backend=backend, drange=cfg.disparity_range)
-    # The agree stage takes no range. The JAX package widens its agree
-    # windows by ceil(max_lr_diff / 2) for a ranged Consistency search
-    # (whose matched column can sit that far outside the range), but those
-    # windows exist only for the TPU's static gathers: both agree versions
-    # here read any column, and invalidate a matched column outside the row
-    # as the JAX XLA agree does.
-    corr = None
-    if cfg.nxcorr_threshold is not None:
-        disp, corr = agree_stage(disp, stack0, stack1, cfg, backend,
-                                 window=_agree_window_params(stack0, cfg))
-    from . import debug as _debug
+    with span("bicos.match"):
+        stack0, stack1, backend = _prepare(stack0, stack1, cfg, corrmap,
+                                           backend, device)
+        disp = _search.search_stack(stack0, stack1, cfg.mode, cfg.variant,
+                                    backend=backend,
+                                    drange=cfg.disparity_range)
+        # The agree stage takes no range. The JAX package widens its agree
+        # windows by ceil(max_lr_diff / 2) for a ranged Consistency search
+        # (whose matched column can sit that far outside the range), but
+        # those windows exist only for the TPU's static gathers: both agree
+        # versions here read any column, and invalidate a matched column
+        # outside the row as the JAX XLA agree does.
+        corr = None
+        if cfg.nxcorr_threshold is not None:
+            disp, corr = agree_stage(disp, stack0, stack1, cfg, backend,
+                                     window=_agree_window_params(stack0, cfg))
+        from . import debug as _debug
 
-    if _debug.enabled():
-        # BICOS_DEBUG's invariant checks (see debug.py); they fetch the
-        # results to the host.
-        _debug.check_match_output(disp, corr, stack0.shape[2],
-                                  subpixel=cfg.subpixel_step is not None)
-    if corrmap:
-        return disp, corr
-    return disp
+        if _debug.enabled():
+            # BICOS_DEBUG's invariant checks (see debug.py); they fetch the
+            # results to the host.
+            with span("bicos.debug"):
+                _debug.check_match_output(
+                    disp, corr, stack0.shape[2],
+                    subpixel=cfg.subpixel_step is not None)
+        if corrmap:
+            return disp, corr
+        return disp
 
 
 def match_batched(stacks0, stacks1, cfg: Config = Config(), *,
@@ -211,9 +220,10 @@ def match_batched(stacks0, stacks1, cfg: Config = Config(), *,
     """Batched matching over ``(batch, n, H, W)`` stacks: rows are
     independent, so the batch is folded into the row axis and matched in
     one call."""
-    flat0, flat1, (b, _, _) = _fold_batch(stacks0, stacks1)
-    return match_batched_folded(flat0, flat1, b, cfg, corrmap=corrmap,
-                                backend=backend, device=device)
+    with span("bicos.match"):
+        flat0, flat1, (b, _, _) = _fold_batch(stacks0, stacks1)
+        return match_batched_folded(flat0, flat1, b, cfg, corrmap=corrmap,
+                                    backend=backend, device=device)
 
 
 def match_batched_folded(flat0, flat1, batch: int, cfg: Config = Config(),
@@ -221,19 +231,21 @@ def match_batched_folded(flat0, flat1, batch: int, cfg: Config = Config(),
                          device=None):
     """Batched matching on pre-folded ``(n, batch*H, W)`` stacks; returns
     per-pair ``(batch, H, W)`` maps."""
-    if flat0.ndim != 3 or tuple(flat0.shape) != tuple(flat1.shape):
-        raise ValueError("folded stacks must share one (n, batch*H, W) shape")
-    if batch < 1 or flat0.shape[1] % batch:
-        raise ValueError(
-            f"row count {flat0.shape[1]} is not a multiple of batch {batch}")
-    h = flat0.shape[1] // batch
-    w = flat0.shape[2]
-    out = match(flat0, flat1, cfg, corrmap=corrmap, backend=backend,
-                device=device)
-    if corrmap:
-        disp, corr = out
-        return disp.reshape(batch, h, w), corr.reshape(batch, h, w)
-    return out.reshape(batch, h, w)
+    with span("bicos.match"):
+        if flat0.ndim != 3 or tuple(flat0.shape) != tuple(flat1.shape):
+            raise ValueError(
+                "folded stacks must share one (n, batch*H, W) shape")
+        if batch < 1 or flat0.shape[1] % batch:
+            raise ValueError(f"row count {flat0.shape[1]} is not a multiple "
+                             f"of batch {batch}")
+        h = flat0.shape[1] // batch
+        w = flat0.shape[2]
+        out = match(flat0, flat1, cfg, corrmap=corrmap, backend=backend,
+                    device=device)
+        if corrmap:
+            disp, corr = out
+            return disp.reshape(batch, h, w), corr.reshape(batch, h, w)
+        return out.reshape(batch, h, w)
 
 
 def _fold_batch(stacks0, stacks1):

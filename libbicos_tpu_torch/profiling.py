@@ -4,6 +4,8 @@ The counterpart of ``libbicos_tpu.profiling``:
 
 * :func:`trace`: ``torch.profiler`` over the enclosed block (CPU and, on a
   card, CUDA activities), written as a Chrome trace into a directory;
+* :func:`span`: a named stage of the program in the profiler's trace,
+  which costs one check while no profiler records;
 * :func:`stage_timings`: the time of each stage of the pipeline
   (transform, search, agree) and of the whole call, each after a warm
   run: CUDA events on the card, ``perf_counter`` on the CPU;
@@ -11,6 +13,19 @@ The counterpart of ``libbicos_tpu.profiling``:
 * :func:`device_memory`: the CUDA allocator's figures of a card, ``{}`` on
   the CPU;
 * :func:`emit`: one JSON line.
+
+The spans of a ``match`` call, as a trace (``--profile``) shows them on the
+host's timeline, each inside the one above it:
+
+* ``bicos.match``: :func:`pipeline.match`, the whole call (and
+  ``match_batched`` / ``match_batched_folded`` around it);
+* ``bicos.prepare``: the checks, the move to the run's device, the
+  backend;
+* ``bicos.transform``: one descriptor transform (two a call);
+* ``bicos.scan``: the scan (kernel launch or plain version);
+* ``bicos.search_finish``: the int16 disparity from the scan's minima;
+* ``bicos.agree``: the agree stage, with a threshold;
+* ``bicos.debug``: the ``BICOS_DEBUG`` checks, when the variable is set.
 """
 
 from __future__ import annotations
@@ -23,6 +38,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -40,6 +56,62 @@ def trace(logdir):
         yield prof
     prof.export_chrome_trace(os.path.join(logdir,
                                           f"trace_{os.getpid()}.json"))
+
+
+class _NoSpan:
+    """What :func:`span` returns while no profiler records: a context that
+    does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _RecordSpan:
+    """What :func:`span` returns while a profiler records: the C++
+    ``RecordFunction`` (user scope) that ``torch.profiler.record_function``
+    wraps, entered without the wrapper's operator calls, which cost about
+    three times as much a span."""
+
+    __slots__ = ("name", "handle")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.handle = torch._C._autograd._record_function_with_args_enter(
+            self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        torch._C._autograd._record_function_with_args_exit(self.handle)
+        return None
+
+
+def span(name: str):
+    """``with span("bicos.scan"): ...`` marks a stage of the program.
+
+    While a profiler records, the span lands in the profiler's trace as a
+    user annotation, as one of ``torch.profiler.record_function`` does: on
+    the clock of the device's kernels and copies, inside the span that
+    encloses it on the same thread. Otherwise it is one shared context
+    that does nothing: the call costs one check and records nothing. The
+    profiler holds the spans; :func:`trace` writes them out.
+
+    The check reads the flag that ``torch.profiler.profile`` (and
+    ``emit_nvtx`` / ``emit_itt``) set while they record, the one
+    TorchDynamo reads: a Python attribute, cheaper than asking the C++
+    profiler's state."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordSpan(name)
+    return _NO_SPAN
 
 
 def _timed_ms(fn: Callable, device: torch.device) -> float:

@@ -46,6 +46,7 @@ from .config import (
     validate_stack,
 )
 from .descriptor import descriptor_words, pack_bits
+from .profiling import span
 
 INVALID_I16 = -32768
 PACK_K = 32768
@@ -281,17 +282,11 @@ def _left_cols(w0: int, col_off: int, device) -> torch.Tensor:
 
 def _finish_nodupes(first: torch.Tensor, last: torch.Tensor,
                     w0: int, col_off: int = 0) -> torch.Tensor:
-    col0 = _left_cols(w0, col_off, first.device)
-    valid = (first == last) & (first >= 0)
-    disp = torch.where(valid, col0 - first, INVALID_I16)
-    return disp.to(torch.int16)
-
-
-def _finish_consistency(first0, last0, first1, last1,
-                        variant: Consistency) -> torch.Tensor:
-    """Decode from per-right-column reverse minima ``(H, W1)``."""
-    return _finish_gathered(variant, first0, last0,
-                            *_lookup_reverse(first1, last1, first0))
+    with span("bicos.search_finish"):
+        col0 = _left_cols(w0, col_off, first.device)
+        valid = (first == last) & (first >= 0)
+        disp = torch.where(valid, col0 - first, INVALID_I16)
+        return disp.to(torch.int16)
 
 
 def _finish_consistency_gathered(first0, last0, rc0, rok, h: int, w0: int,
@@ -313,11 +308,13 @@ def _finish_consistency_gathered(first0, last0, rc0, rok, h: int, w0: int,
 def _finish_gathered(variant: Consistency, first0, last0, rc0, rc0_last,
                      col_off: int = 0):
     """The reverse no_dupes check (``rc0 == rc0_last``), then the decode."""
-    h, w0 = first0.shape
-    rok = (rc0 == rc0_last if variant.no_dupes
-           else torch.ones((h, w0), dtype=torch.bool, device=first0.device))
-    return _finish_consistency_gathered(first0, last0, rc0, rok, h, w0,
-                                        variant, col_off)
+    with span("bicos.search_finish"):
+        h, w0 = first0.shape
+        rok = (rc0 == rc0_last if variant.no_dupes
+               else torch.ones((h, w0), dtype=torch.bool,
+                               device=first0.device))
+        return _finish_consistency_gathered(first0, last0, rc0, rok, h, w0,
+                                            variant, col_off)
 
 
 def search_words(words0: torch.Tensor, words1: torch.Tensor, nbits: int,
@@ -336,8 +333,9 @@ def search_words(words0: torch.Tensor, words1: torch.Tensor, nbits: int,
             first, last = row_minima_words(words0, words1, True,
                                            drange=drange)
         else:
-            _, first, last = row_minima_torch_words(words0, words1, True,
-                                                    drange=drange)
+            with span("bicos.scan"):
+                _, first, last = row_minima_torch_words(words0, words1, True,
+                                                        drange=drange)
         return _finish_nodupes(first, last, w0)
     if backend == "cuda":
         from .kernels.consistency import row_minima_consistency_words
@@ -346,9 +344,12 @@ def search_words(words0: torch.Tensor, words1: torch.Tensor, nbits: int,
             row_minima_consistency_words(words0, words1,
                                          no_dupes=variant.no_dupes,
                                          drange=drange))
-        return _finish_gathered(variant, first0, last0, rc0, rc0_last)
-    return _finish_consistency(
-        *_two_pass(words0, words1, variant.no_dupes, drange), variant)
+    else:
+        with span("bicos.scan"):
+            first0, last0, rc0, rc0_last = (
+                row_minima_consistency_torch_words(
+                    words0, words1, variant.no_dupes, drange))
+    return _finish_gathered(variant, first0, last0, rc0, rc0_last)
 
 
 def search(bits0: torch.Tensor, bits1: torch.Tensor, variant: SearchVariant,
@@ -371,10 +372,12 @@ def search_stack(stack0: torch.Tensor, stack1: torch.Tensor,
     backend = resolve_backend(backend, stack0, stack1)
     w0 = stack0.shape[2]
     if backend != "cuda":
-        return search_words(
-            descriptor_words(stack0, mode), descriptor_words(stack1, mode),
-            validate_stack(stack0.shape[0], mode), variant, backend,
-            drange=drange)
+        words = []
+        for stack in (stack0, stack1):
+            with span("bicos.transform"):
+                words.append(descriptor_words(stack, mode))
+        return search_words(*words, validate_stack(stack0.shape[0], mode),
+                            variant, backend, drange=drange)
     if isinstance(variant, NoDuplicates):
         from .kernels import hamming as kh
 
