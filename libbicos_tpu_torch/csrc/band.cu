@@ -140,13 +140,14 @@ band_consistency_kernel(ConsArgs p) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int64_t row = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint32_t* stage = smem + warp * cons::STAGE * NW;
+  uint32_t* stage = smem + warp * cons::stage_words(NW);
   int32_t* const grf = p.rf + row * p.rstride + p.off1;
   int32_t* const grl = LAST ? p.rl + row * p.rstride + p.off1 : nullptr;
   int32_t* rf = grf;
   int32_t* rl = grl;
   if (!GLOBAL_REV) {
-    rf = reinterpret_cast<int32_t*>(smem + cons::WARPS * cons::STAGE * NW);
+    rf = reinterpret_cast<int32_t*>(smem +
+                                    cons::WARPS * cons::stage_words(NW));
     rl = rf + p.wid1;
     for (int i = threadIdx.x; i < p.wid1; i += cons::TPB) {
       rf[i] = INT_MAX;

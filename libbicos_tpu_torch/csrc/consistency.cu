@@ -17,23 +17,25 @@
 // other, and so does this one, in one sweep of the cost matrix.
 //
 // Bound on the card: popcount issue rate, as hamming.cu (H*W0*W1*nw
-// popcounts at the full scan); a ranged scan visits only the columns each
-// warp's tile can reach, about (TILE + dmax - dmin) per tile of TILE left
-// pixels.
+// popcounts at the full scan), which the fold meets only if the integer
+// work of a pair stays well below the ALU's four instructions a popcount
+// (cons_scan.cuh); a ranged scan visits only the columns each warp's tile
+// can reach, about (TILE + dmax - dmin) per tile of TILE left pixels.
 //
 // Design: one block per image row; its warps take the row's tiles of TILE
 // left pixels in turn and scan each against the right row with the shared
-// fused fold of cons_scan.cuh (P pixels a thread; reverse minima reduced
-// over the thread's pixels, then over the warp by one transposed butterfly
-// per group of columns, then one shared-memory atomicMin per column and
-// group). The block keeps the row's reverse minima as packed int32,
+// fused fold of cons_scan.cuh (P pixels a thread; both directions in
+// 16-bit (first, last) key pairs; reverse minima reduced over the thread's
+// pixels, then over the warp by one transposed butterfly per group of
+// columns, then one shared-memory atomicMin per column and chunk of
+// columns). The block keeps the row's reverse minima as packed int32,
 // cost << S | col0 for first and cost << S | (2^S - 1 - col0) for last
 // (cost <= 256, col0 < 2^S); each pixel's forward minima are packed the
 // same way with the right column. After a __syncthreads() the same block
 // reads the reverse minima at each pixel's forward first argmin.
 //
 // The reverse minima take 4*W1 bytes (8*W1 with no_dupes) of shared
-// memory beside the warps' staging buffers, 26.4 KB + 16 KB at W=3300 and
+// memory beside the warps' staging buffers, 26.4 KB + 20 KB at W=3300 and
 // nw=4 with no_dupes; rows too wide for the block's shared memory keep them
 // in a global scratch row instead (GLOBAL_REV, global atomicMin; each block
 // owns its row's scratch). A pixel with no in-range column gets
@@ -80,12 +82,13 @@ __global__ void __launch_bounds__(TPB, cons::min_blocks(NW, NO_DUPES))
   const int64_t row = blockIdx.x;
   const int wid0 = p.wid0, wid1 = p.wid1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint32_t* stage = smem + warp * cons::STAGE * NW;
+  uint32_t* stage = smem + warp * cons::stage_words(NW);
   int32_t* rf;
   if (GLOBAL_REV)
     rf = p.scratch + row * 2 * wid1;
   else
-    rf = reinterpret_cast<int32_t*>(smem + cons::WARPS * cons::STAGE * NW);
+    rf = reinterpret_cast<int32_t*>(smem +
+                                    cons::WARPS * cons::stage_words(NW));
   int32_t* rl = rf + wid1;
   for (int i = threadIdx.x; i < wid1; i += TPB) {
     rf[i] = INT_MAX;

@@ -176,32 +176,70 @@ def test_consistency_kernel_equal(dev, n, mode, w0, w1, drange, no_dupes):
         no_dupes)
 
 
-@pytest.mark.parametrize("no_dupes", [True, False])
-def test_consistency_kernel_ties(dev, no_dupes):
-    """Duplicate columns on both sides: reverse first/last tie order."""
-    a = _random_words(dev, 3, 600, 2, 1)
-    b = _random_words(dev, 3, 600, 2, 2)
-    b[:, 500:520] = b[:, 10:30]
-    a[:, 400:420] = a[:, 20:40]
-    a[:, 40:60] = b[:, 10:30]
-    a[:, 300:320] = b[:, 10:30]
-    out = row_minima_consistency_words(a, b, no_dupes=no_dupes)
-    _assert_cons_equal(
-        out, ts.row_minima_consistency_torch_words(a, b, no_dupes), no_dupes)
+def _tie_words(dev, case, w0, w1, offs=(0,)):
+    """Left and right words with ties: ``dupes``, duplicate columns on both
+    sides; ``chunk_edges``, equal right columns on both sides of each
+    128-column chunk boundary (127/128, 255/256, from each offset in
+    ``offs``) and equal left pixels on both sides of the tile boundaries
+    at 64, 128 and 192, each matched exactly by some pixel or column;
+    ``cost256``, 8 all-zero words on the left against all-ones on the
+    right, so every pair costs 256."""
+    if case == "cost256":
+        a = torch.zeros((3, w0, 8), dtype=torch.int32, device=dev)
+        return a, torch.full((3, w1, 8), -1, dtype=torch.int32, device=dev)
+    a = _random_words(dev, 3, w0, 2, 1)
+    b = _random_words(dev, 3, w1, 2, 2)
+    if case == "dupes":
+        b[:, 500:520] = b[:, 10:30]
+        a[:, 400:420] = a[:, 20:40]
+        a[:, 40:60] = b[:, 10:30]
+        a[:, 300:320] = b[:, 10:30]
+        return a, b
+    for off in offs:
+        for j in (127, 255):
+            b[:, off + j + 1] = b[:, off + j]
+            a[:, off + j - 100] = b[:, off + j]
+    for c in (63, 127, 191):
+        a[:, c] = a[:, c + 1] = b[:, c - 20]
+    return a, b
 
 
+@pytest.mark.parametrize("case", ["dupes", "chunk_edges", "cost256"])
 @pytest.mark.parametrize("no_dupes", [True, False])
-@pytest.mark.parametrize("drange", [None, (0, 511), (-40, 300), (3, 3)])
+def test_consistency_kernel_ties(dev, no_dupes, case):
+    """Reverse and forward first/last tie order: duplicate columns, ties
+    that straddle a chunk or tile boundary, and cost 256 in every pair
+    (first 0 and last w - 1 in both directions), unranged and ranged."""
+    a, b = _tie_words(dev, case, 600, 600)
+    for drange in (None, (-40, 300)):
+        out = row_minima_consistency_words(a, b, no_dupes=no_dupes,
+                                           drange=drange)
+        _assert_cons_equal(out, ts.row_minima_consistency_torch_words(
+            a, b, no_dupes, drange), no_dupes)
+    if case == "cost256":
+        (_, f, l), (_, rc, rcl) = row_minima_consistency_words(
+            a, b, no_dupes=no_dupes)
+        assert bool((f == 0).all()) and bool((rc == 0).all())
+        if no_dupes:
+            assert bool((l == 599).all()) and bool((rcl == 599).all())
+
+
+@pytest.mark.parametrize("nw", [4, 1, 3, 5, 8])
+@pytest.mark.parametrize("no_dupes", [True, False])
+@pytest.mark.parametrize("drange", [None, (0, 511), (-40, 300), (3, 3),
+                                    (200, 300)])
 @pytest.mark.parametrize("w0, w1", [(1061, 1100), (127, 129), (129, 127),
                                     (65, 63), (2048, 2048), (1, 700),
                                     (700, 1)])
-def test_consistency_kernel_tile_edges(dev, w0, w1, drange, no_dupes):
+def test_consistency_kernel_tile_edges(dev, w0, w1, drange, no_dupes, nw):
     """Widths around the warp tile (TILE = 64 left pixels, P = 2 a thread)
     and the block's P x TPB = 512 pixels: ragged last tiles (1061 = 2 x 512
     + 37), rows that end one pixel into a tile (65, 129), exact multiples,
-    one-pixel rows; with ties from a small alphabet of descriptors."""
+    one-pixel rows; with ties from a small alphabet of descriptors of 1 to
+    8 words. (200, 300) leaves 128-column chunks of a tile's window in
+    which a pixel has only out-of-range pairs."""
     g = np.random.default_rng(w0 * 7 + w1)
-    pool = g.integers(-2**31, 2**31, size=(24, 4)).astype(np.int32)
+    pool = g.integers(-2**31, 2**31, size=(24, nw)).astype(np.int32)
     a = torch.from_numpy(pool[g.integers(0, 24, (3, w0))]).to(dev)
     b = torch.from_numpy(pool[g.integers(0, 24, (3, w1))]).to(dev)
     out = row_minima_consistency_words(a, b, no_dupes=no_dupes,
@@ -381,16 +419,30 @@ def test_consistency_band_kernel_equal(dev, n, mode, w, nbands, drange,
         assert torch.equal(rc0_last, prcl)
 
 
-def test_consistency_band_kernel_ties_and_ultrawide(dev):
-    """Duplicate columns in different bands on both sides, on 2 x 20000
-    rows over 4 bands, ranged and not."""
-    b = _random_words(dev, 2, 20000, 1, 3)
-    a = torch.roll(b, 7, dims=1).contiguous()
-    b[:, 19000:19010] = b[:, 100:110]
-    a[:, 15000:15010] = a[:, 300:310]
+@pytest.mark.parametrize("case", ["ultrawide", "chunk_edges", "cost256"])
+def test_consistency_band_kernel_ties_and_ultrawide(dev, case):
+    """Ties over a ring of 4 bands, ranged and not: duplicate columns in
+    different bands on both sides of 2 x 20000 rows; ties that straddle a
+    chunk or tile boundary in every 300-column band of 1200-column rows;
+    cost 256 in every pair (first 0 and last w - 1 in both directions)."""
+    if case == "ultrawide":
+        b = _random_words(dev, 2, 20000, 1, 3)
+        a = torch.roll(b, 7, dims=1).contiguous()
+        b[:, 19000:19010] = b[:, 100:110]
+        a[:, 15000:15010] = a[:, 300:310]
+    else:
+        a, b = _tie_words(dev, case, 1200, 1200, offs=(0, 300, 600, 900))
     for drange in (None, (-300, 300)):
         for need_last in (True, False):
             _cons_ring(a, b, 4, need_last, drange)
+    if case == "cost256":
+        w = a.shape[1]
+        (mf, _), rev = _cons_ring(a, b, 4, True, None)
+        first = torch.cat([ts.decode_minima(f, None, w)[1] for f in mf],
+                          1)[:, :w]
+        _, first1, last1 = ts.decode_minima(rev[0], rev[1], w)
+        assert bool((first == 0).all()) and bool((first1[:, :w] == 0).all())
+        assert bool((last1[:, :w] == w - 1).all())
 
 
 def test_consistency_band_kernel_global_reverse(dev):
