@@ -6,15 +6,21 @@ Written from the semantics of upstream libBICOS (``descriptor_transform``,
 nothing of the program under test and takes nothing it made: it works the
 descriptors, the scan and the agree stage out again from the input stacks.
 
-* **Descriptors.** The LIMITED transform's comparisons of a pixel's series
+* **Descriptors.** The comparisons of a pixel's series
   (``s[t] < s[t+1]``, ``s[t] < s[t+2]``, ``s[t] < mean`` in the exact
-  integer form ``n * s[t] < sum``, and pair sums two apart). The bits are
-  kept as 0/1 planes; their order does not matter to a Hamming distance.
+  integer form ``n * s[t] < sum``) and of its pair sums
+  ``s[t] + s[t+1]``: LIMITED compares pair sums two apart
+  (``4n - 6`` bits), FULL every pair sum with every other that shares
+  no sample with it (``descriptor_transform.hpp:76-123``, ``n^2 - 2n +
+  3`` bits). The bits are kept as 0/1 planes; their order does not
+  matter to a Hamming distance.
 * **Scan.** ``ham(a, b) = pop(a) + pop(b) - 2 a.b``, the dot products by a
   batched matrix product over a block of rows. Every partial sum is an
-  integer of at most 128, exact in float16 and float32 whatever the
-  accumulation order. The least cost's first and last column come from
-  minima of ``cost * K + col`` and ``cost * K + (W - 1 - col)``.
+  integer no larger than the number of planes (128 for LIMITED at n=33,
+  227 for FULL at n=16), exact in float16 (below 2048) and float32
+  whatever the accumulation order. The least cost's first and last
+  column come from minima of ``cost * K + col`` and ``cost * K + (W - 1 -
+  col)``.
 * **Variants.** NoDuplicates keeps a pixel whose first and last argmin
   agree; Consistency searches back from the matched right column and keeps
   the pixel iff the reverse argmin lands within ``max_lr_diff``; with
@@ -69,10 +75,33 @@ def limited_planes(stack: torch.Tensor) -> List[torch.Tensor]:
     return planes
 
 
-def _bit_matrix(stack: torch.Tensor):
+def full_planes(stack: torch.Tensor) -> List[torch.Tensor]:
+    """The FULL transform's bit planes of an ``(n, H, W)`` stack, as
+    ``(H, W)`` bool tensors: ``n^2 - 2n + 3`` of them."""
+    s = stack.to(torch.int32)
+    n = s.shape[0]
+    if n < 2:
+        raise ValueError("the reference transform needs n >= 2")
+    total = s.sum(dim=0)
+    planes = []
+    for t in range(n - 2):
+        planes += [s[t] < s[t + 1], s[t] < s[t + 2], n * s[t] < total]
+    planes += [s[n - 2] < s[n - 1], n * s[n - 2] < total,
+               n * s[n - 1] < total]
+    pair = [s[t] + s[t + 1] for t in range(n - 1)]
+    for t in range(n - 1):
+        planes += [pair[t] < pair[i] for i in range(n - 1)
+                   if i not in (t - 1, t, t + 1)]
+    return planes
+
+
+PLANES = {"LIMITED": limited_planes, "FULL": full_planes}
+
+
+def _bit_matrix(stack: torch.Tensor, mode: str = "LIMITED"):
     """``(H, W, P)`` 0/1 planes in the scan's matmul type (P padded to a
     multiple of 8 with zero planes) and the ``(H, W)`` int32 popcounts."""
-    planes = limited_planes(stack)
+    planes = PLANES[mode](stack)
     mm = torch.float16 if stack.device.type == "cuda" else torch.float32
     bits = torch.stack(planes, dim=0)
     pop = bits.sum(dim=0, dtype=torch.int32)
@@ -82,17 +111,19 @@ def _bit_matrix(stack: torch.Tensor):
 
 
 def scan(stack0: torch.Tensor, stack1: torch.Tensor, variant: dict,
-         rows: int = SCAN_ROWS) -> torch.Tensor:
+         rows: int = SCAN_ROWS, mode: str = "LIMITED") -> torch.Tensor:
     """The full-row correspondence search: ``(H, W)`` int16 disparity
     ``col0 - col1``, -32768 invalid. ``variant``: ``{"kind":
     "NoDuplicates"}`` or ``{"kind": "Consistency", "max_lr_diff": m,
-    "no_dupes": b}``."""
+    "no_dupes": b}``; ``mode``: ``"LIMITED"`` or ``"FULL"``."""
     kind = variant["kind"]
     if kind not in ("NoDuplicates", "Consistency"):
         raise ValueError(f"unknown search variant {kind!r}")
+    if mode not in PLANES:
+        raise ValueError(f"unknown transform mode {mode!r}")
     cons = kind == "Consistency"
-    b0, pop0 = _bit_matrix(stack0)
-    b1, pop1 = _bit_matrix(stack1)
+    b0, pop0 = _bit_matrix(stack0, mode)
+    b1, pop1 = _bit_matrix(stack1, mode)
     h, w0, _ = b0.shape
     w1 = b1.shape[1]
     dev = b0.device
@@ -228,13 +259,13 @@ def agree(disp: torch.Tensor, stack0: torch.Tensor, stack1: torch.Tensor,
 def match(stack0: torch.Tensor, stack1: torch.Tensor, cfg: dict,
           dtype=torch.float32):
     """``(search disparity, disparity, corrmap)`` of one pair under a
-    configuration file's settings (``variant``, ``nxcorr_threshold``,
-    ``subpixel_step``, ``min_variance``; LIMITED, full rows)."""
-    if cfg.get("mode", "LIMITED") != "LIMITED":
-        raise ValueError("the reference transform is LIMITED only")
+    configuration file's settings (``mode``, LIMITED by default;
+    ``variant``, ``nxcorr_threshold``, ``subpixel_step``,
+    ``min_variance``; full rows)."""
     if cfg.get("disparity_range") is not None:
         raise ValueError("the reference scans full rows only")
-    search = scan(stack0, stack1, cfg["variant"])
+    search = scan(stack0, stack1, cfg["variant"],
+                  mode=cfg.get("mode", "LIMITED"))
     disp, corr = agree(search, stack0, stack1, cfg["nxcorr_threshold"],
                        cfg.get("subpixel_step"), cfg.get("min_variance"),
                        dtype)

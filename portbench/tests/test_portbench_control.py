@@ -13,28 +13,33 @@ from pathlib import Path
 import pytest
 import torch
 
-from portbench import harness, spec
+from portbench import harness, judge, spec
 
 from libbicos_tpu_torch import pipeline
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = [w["name"] for w in json.loads(
     (ROOT / "BENCHMARK.json").read_text())["workloads"]]
-SHAPE = (33, 32, 128)
 
 
-def run(cell, seed=3000000321):
+def cell_config(cell, root=ROOT) -> dict:
+    bench = spec.Benchmark(root)
+    return bench.config(bench.cell(cell)["config"])
+
+
+def run(cell, seed=3000000321, root=ROOT):
+    """One run of the cell at a tiny shape of its own stack size ``n``."""
+    shape = (cell_config(cell, root)["n"], 32, 128)
     out, err = io.StringIO(), io.StringIO()
-    rc = harness.run_cell(ROOT, cell, seed, 1.5, False,
+    rc = harness.run_cell(root, cell, seed, 1.5, False,
                           t_start=time.perf_counter(), device="cpu",
-                          backend="torch", shape=SHAPE, out=out, err=err)
+                          backend="torch", shape=shape, out=out, err=err)
     assert rc == 0, err.getvalue()
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-def control(cell):
-    cfg = spec.Benchmark(ROOT).config(spec.Benchmark(ROOT).cell(cell)[
-        "config"])
+def control(cell, root=ROOT):
+    cfg = cell_config(cell, root)
     ref = spec.load_module("reference", cfg["reference"])
 
     def match(s0, s1, _cfg, *, corrmap=False, **_):
@@ -43,13 +48,21 @@ def control(cell):
     return match
 
 
+def invalid(disp):
+    """The answer's invalid disparity: NaN for a float map, -32768 for
+    int16."""
+    return float("nan") if disp.is_floating_point() else judge.INVALID_I16
+
+
 def altered(real):
-    """Answers altered where they are made: the disparity of a band of 2%
-    of the rows (one row at least) moved by one pixel."""
+    """Answers altered where they are made: the valid disparities of a
+    band of 2% of the rows (one row at least) moved by one pixel, in the
+    answer's own dtype."""
     def match(*a, **kw):
         disp, corr = real(*a, **kw)
         disp = disp.clone()
-        disp[:max(1, disp.shape[0] // 50)] += 1.0
+        band = disp[:max(1, disp.shape[0] // 50)]
+        band += (band != invalid(disp)).to(disp.dtype)
         return disp, corr
     return match
 
@@ -71,7 +84,7 @@ def half_rows(real):
     def match(*a, **kw):
         disp, corr = (x.clone() for x in real(*a, **kw))
         h = disp.shape[0]
-        disp[h // 2:] = float("nan")
+        disp[h // 2:] = invalid(disp)
         corr[h // 2:] = float("nan")
         return disp, corr
     return match

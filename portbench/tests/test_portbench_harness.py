@@ -20,13 +20,20 @@ from portbench.trace import Trace
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
-SHAPE = (33, 8, 96)
+SHAPE = (33, 8, 96)  # headline33's stack size, for the tests of one cell
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
-def run(cell, trace, seed=3000000123, seconds=1.5, shape=SHAPE):
+def cell_shape(cell, root=ROOT):
+    """The rehearsal's tiny shape at the cell's own stack size ``n``."""
+    bench = spec.Benchmark(root)
+    return (bench.config(bench.cell(cell)["config"])["n"], 8, 96)
+
+
+def run(cell, trace, seed=3000000123, seconds=1.5, shape=None, root=ROOT):
+    shape = shape or cell_shape(cell, root)
     out, err = io.StringIO(), io.StringIO()
-    rc = harness.run_cell(ROOT, cell, seed, seconds, trace,
+    rc = harness.run_cell(root, cell, seed, seconds, trace,
                           t_start=time.perf_counter(), device="cpu",
                           backend="torch", shape=shape, out=out, err=err)
     assert rc == 0, err.getvalue()
