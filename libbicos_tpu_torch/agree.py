@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .config import Precision
+from .profiling import span
 
 INVALID_I16 = -32768
 
@@ -128,8 +129,9 @@ def agree_integer(disp: torch.Tensor, stack0: torch.Tensor,
     nxc = _nxcorr_from(diff0, var0, s1sel, minvar)
     nan = _f32(float("nan"), disp.device)
     corr = torch.where(keep, nxc.to(torch.float32), nan)
-    final = keep & ~(nxc < _const(threshold, nxc))
-    out = torch.where(final, d + col_offset, INVALID_I16).to(torch.int16)
+    with span("bicos.agree_finish"):
+        final = keep & ~(nxc < _const(threshold, nxc))
+        out = torch.where(final, d + col_offset, INVALID_I16).to(torch.int16)
     return out, corr
 
 

@@ -156,9 +156,11 @@ def agree_stage(disp, stack0, stack1, cfg: Config, backend: str,
                                      wcap=wcap, precision=cfg.precision)
             if step is not None:
                 return out_f, corr
-            return torch.where(
-                torch.isnan(out_f), _agree.INVALID_I16,
-                torch.nan_to_num(out_f).to(torch.int32)).to(torch.int16), corr
+            with span("bicos.agree_finish"):
+                return torch.where(
+                    torch.isnan(out_f), _agree.INVALID_I16,
+                    torch.nan_to_num(out_f).to(torch.int32)
+                ).to(torch.int16), corr
         if step is not None:
             return _agree.agree_subpixel(disp, stack0, stack1,
                                          cfg.nxcorr_threshold, step, minvar,

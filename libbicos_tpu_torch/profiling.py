@@ -25,6 +25,8 @@ host's timeline, each inside the one above it:
 * ``bicos.scan``: the scan (kernel launch or plain version);
 * ``bicos.search_finish``: the int16 disparity from the scan's minima;
 * ``bicos.agree``: the agree stage, with a threshold;
+* ``bicos.agree_finish``: inside ``bicos.agree``, the int16 disparity
+  from the agree's answer, with a threshold and no subpixel step;
 * ``bicos.debug``: the ``BICOS_DEBUG`` checks, when the variable is set.
 """
 

@@ -86,7 +86,11 @@ _CFGS = {
     "consistency integer": tb.Config(nxcorr_threshold=0.5,
                                      variant=tb.Consistency(2, False)),
     "no threshold": tb.Config(nxcorr_threshold=None),
+    # ``portbench/configs/full16.json``'s settings, at n=16.
+    "full16": tb.Config(nxcorr_threshold=0.9, subpixel_step=None,
+                        min_variance=None, mode=tb.TransformMode.FULL),
 }
+_SHOTS = {"full16": 16}  # 9 shots for the others
 
 
 def _span_tree(logdir):
@@ -116,12 +120,14 @@ def _span_tree(logdir):
 def test_match_spans_nest_in_order(tmp_path, monkeypatch, kind, debug):
     monkeypatch.setenv("BICOS_DEBUG", "1" if debug else "0")
     cfg = _CFGS[kind]
-    s0, s1, _ = synthetic_stack_pair(9, 6, 40, seed=2)
+    s0, s1, _ = synthetic_stack_pair(_SHOTS.get(kind, 9), 6, 40, seed=2)
     with tp.trace(tmp_path):
         tb.match(s0, s1, cfg, device="cpu")
     want = [(0, "bicos.match")] + _SEARCH
     if cfg.nxcorr_threshold is not None:
         want.append((1, "bicos.agree"))
+        if cfg.subpixel_step is None:
+            want.append((2, "bicos.agree_finish"))
     if debug:
         want.append((1, "bicos.debug"))
     assert _span_tree(tmp_path) == want
