@@ -7,8 +7,11 @@
    builds the CUDA kernels from ``libbicos_tpu_torch/csrc``; prints the
    registers, stack and spills (``-Xptxas -v``) of the agree, transform,
    Consistency scan, fused ring step and bases kernels (one of them that
-   spills fails the run) and the agree and transform kernels' SASS opcode
-   counts, whole and per sweep loop (``cuobjdump -sass``).
+   spills fails the run, and so does a FULL transform instance with a
+   stack frame) and the agree and transform kernels' SASS opcode counts,
+   whole and per sweep loop (``cuobjdump -sass``); of the FULL transform's
+   instances (``transform_kernel<u8,16>``: u8 and u16, n = 2..16) the
+   counts of the two n = 16 ones and each one's instructions a pixel.
 2. Compares each kernel with its plain PyTorch version on the card, at a
    full-width row band of the headline input (n=33, 64 x 3300, u8, LIMITED)
    and at a ragged small shape (n=9, 7 x 1001, u16, FULL): the scan
@@ -28,14 +31,19 @@
    (16 x 3300) and on a 2 x 20000 n=9 row pair over 4 bands, and the fused
    step on a 1-band ring at 32767 columns (reverse minima in global
    memory).
-3. Runs four full-size calls ``match(s0, s1, cfg, backend="cuda")`` (n=33,
-   2200 x 3300, u8, LIMITED, threshold 0.96, min_variance 2.0, subpixel
-   step 0.1) on synthetic input: A the NoDuplicates headline, B
-   Consistency(1, True), C NoDuplicates with disparity_range (0, 511), D
-   Consistency(1, True) with (0, 511). Each call's launch counts are set to
-   0 just before it and read just after, and must equal the kernels of its
-   path; two runs must agree; the valid share must be above 0. The call's
-   scan kernel and the agree kernel are compared with their plain versions
+3. Runs five full-size calls ``match(s0, s1, cfg, backend="cuda")`` on
+   synthetic input: four at n=33, 2200 x 3300, u8, LIMITED, threshold
+   0.96, min_variance 2.0, subpixel step 0.1 (A the NoDuplicates
+   headline, B Consistency(1, True), C NoDuplicates with disparity_range
+   (0, 511), D Consistency(1, True) with (0, 511)), and N at ``full16``'s
+   settings on the headline's first 16 shots (n=16, u8, FULL, 8 words a
+   pixel, threshold 0.9, no step, no min_variance, NoDuplicates, int16
+   disparity). Before them the FULL transform of N's stacks is compared
+   with its plain version, and at the end timed beside the LIMITED one.
+   Each call's launch counts are set to 0 just before it and read just
+   after, and must equal the kernels of its path; two runs must agree; the
+   valid share must be above 0. The call's scan kernel and the agree
+   kernel (N: the integer agree) are compared with their plain versions
    at the shapes the call gives them, and the call and its kernels are
    timed (CUDA events, median of 5 after a warm run) beside their plain
    versions (one run each). Then two more calls of A's configuration: I
@@ -103,7 +111,7 @@ within 4e-6 of the threshold, or whose best and runner-up sweep NXCORR lie
 within 4e-6 of each other (counted).
 
 Any failure exits non-zero. The last line is the device JSON object; the
-line before it lists the kernels with their launches (summed over the ten
+line before it lists the kernels with their launches (summed over the eleven
 calls and the served requests), errors, times and bounds. A kernel's bound
 is the least time the card could take for its work on this run's inputs:
 the larger of its bytes (each input read once, each output written once)
@@ -324,7 +332,7 @@ def agree_bound(torch, disp, s0, s1, nx, double=False, conv_pipe=False):
 
 
 _KERNEL_NAME = re.compile(
-    r"(agree_window_kernel|agree_kernel|transform_kernel)I([a-z]+)E")
+    r"(agree_window_kernel|agree_kernel|transform_kernel)I((?:[a-z]|Li\d+E)+)E")
 _SCAN_NAME = re.compile(
     r"\d(band_consistency_kernel|consistency_kernel)I((?:L[ib]\d+E)+)E")
 _TYPE_LETTERS = {"f": "float", "d": "double", "h": "u8", "t": "u16"}
@@ -336,12 +344,14 @@ _BASES_NAME = re.compile(r"\d(bases_vec_kernel|bases_kernel)E")
 
 def short_name(mangled: str) -> str:
     """``agree_kernel<float,u8>`` for an agree or transform kernel's
-    mangled name, ``consistency_kernel<4,1,0>`` (nw, last, global reverse
-    minima) for a Consistency scan or fused ring step, else the mangled
-    name."""
+    mangled name (``transform_kernel<u8,16>`` for the FULL transform of 16
+    shots), ``consistency_kernel<4,1,0>`` (nw, last, global reverse minima)
+    for a Consistency scan or fused ring step, else the mangled name."""
     m = _KERNEL_NAME.search(mangled)
     if m:
-        return f"{m[1]}<{','.join(_TYPE_LETTERS.get(c, c) for c in m[2])}>"
+        args = (num or _TYPE_LETTERS.get(c, c)
+                for num, c in re.findall(r"Li(\d+)E|([a-z])", m[2]))
+        return f"{m[1]}<{','.join(args)}>"
     m = _SCAN_NAME.search(mangled)
     if m:
         args = re.findall(r"L[ib](\d+)E", m[2])
@@ -382,7 +392,9 @@ def sass_report(lib: Path) -> dict:
     the built library, from ``cuobjdump -sass``: over the whole kernel, and
     over each loop (the span of a backward branch) that holds at least 20
     FMULs (the sweep's two shot loops of an x tile, and the x loop around
-    them) or, in the transform, at least 16 instructions.
+    them) or, in the transform, at least 16 instructions; ``last_loop``,
+    the instructions of the loop that the kernel's last backward branch
+    closes (in a FULL transform, the loop over a thread's pixels).
     ``{}`` where the toolkit has no cuobjdump."""
     import shutil
 
@@ -410,34 +422,52 @@ def sass_report(lib: Path) -> dict:
 
     report = {}
     for name, ins in funcs.items():
-        loops = []
+        loops, last_loop = [], None
         for addr, _, tgt in ins:
             if tgt is None or tgt >= addr:
                 continue
             body = [x for x in ins if tgt <= x[0] <= addr]
+            last_loop = len(body)
             c = counts(body)
             if c["FMUL"] >= 20 or (name.startswith("transform")
                                    and len(body) >= 16):
                 loops.append({"span": f"{tgt:#06x}-{addr:#06x}",
                               "instructions": len(body), **c})
         report[name] = {"instructions": len(ins), **counts(ins),
-                        "loops": loops}
+                        "loops": loops, "last_loop": last_loop}
     return report
 
 
-def build_report(lib: Path) -> None:
+_FULL_TRANSFORM = re.compile(r"transform_kernel<(u8|u16),(\d+)>")
+
+
+def build_report(lib: Path) -> dict:
     """Prints the registers and spills (the ``-Xptxas -v`` log beside
     ``lib``) of the agree, transform, Consistency scan, fused ring step and
     bases kernels, and the agree and transform kernels' SASS opcode counts;
-    fails if one of those kernels spills."""
+    fails if one of those kernels spills, or if a FULL transform instance
+    has a stack frame (its words left the registers). Returns the SASS
+    instructions a pixel of each FULL transform instance (its last loop,
+    the loop over a thread's pixels), by short name."""
     log = lib.with_suffix(".log")
     ptxas = ptxas_report(log.read_text()) if log.exists() else {}
     mine = {k: v for k, v in ptxas.items() if k.startswith(REPORTED)}
     if not any(k.startswith("band_consistency") for k in mine):
         fail("the build log names no fused Consistency ring step kernel")
+    full = {k: v for k, v in mine.items() if _FULL_TRANSFORM.fullmatch(k)}
+    if len(full) != 2 * 15:
+        fail(f"the build log names {len(full)} FULL transform instances, "
+             f"not 30 (u8 and u16, n = 2..16)")
     for k, v in mine.items():
-        if k.startswith(("agree", "transform", "bases")):
+        if k.startswith(("agree", "transform", "bases")) and k not in full:
             print(f"  ptxas: {k}: {v}", flush=True)
+    print("  ptxas: transform_kernel<T,n> registers/stack/spills: "
+          + " ".join(f"{k[len('transform_kernel'):]} {v.get('registers')}/"
+                     f"{v.get('stack')}/{v.get('spill_stores', 0)}"
+                     for k, v in full.items()), flush=True)
+    stacked = [k for k, v in full.items() if v.get("stack")]
+    if stacked:
+        fail(f"these FULL transform instances have a stack frame: {stacked}")
     for fam in ("consistency_kernel", "band_consistency_kernel"):
         # registers/stack/spill bytes of each <nw,last,global> instance
         print(f"  ptxas: {fam}<nw,last,global> registers/stack/spills: "
@@ -453,7 +483,11 @@ def build_report(lib: Path) -> None:
     if spills:
         fail(f"these kernels spill registers: {spills}")
     sass = sass_report(lib)
+    per_pixel = {k: v["last_loop"] for k, v in sass.items()
+                 if _FULL_TRANSFORM.fullmatch(k)}
     for k, v in sass.items():
+        if k in per_pixel and not k.endswith(",16>"):
+            continue  # the other FULL instances: a pixel's count below
         print(f"  sass: {k}: " + " ".join(
             f"{op} {v[op]}" for op in ("instructions",) + SASS_OPS),
               flush=True)
@@ -461,8 +495,13 @@ def build_report(lib: Path) -> None:
             print(f"    loop {loop['span']}: " + " ".join(
                 f"{op} {loop[op]}" for op in ("instructions",) + SASS_OPS),
                   flush=True)
+    if per_pixel:
+        print("  sass: transform_kernel<T,n> instructions a pixel: "
+              + " ".join(f"{k[len('transform_kernel'):]} {v}"
+                         for k, v in per_pixel.items()), flush=True)
     if not sass:
         print("  sass: cuobjdump not found, no opcode counts", flush=True)
+    return per_pixel
 
 
 def same_bits(torch, a, b) -> bool:
@@ -883,12 +922,22 @@ def compare_case(torch, label, s0, s1, mode, steps):
     compare_window(torch, label, disp, s0, s1, steps)
 
 
-def call_case(torch, label, call, expect, truth):
+def call_case(torch, label, call, expect, truth, dtype=None):
     """One full-size call ``call(backend)`` -> (disparity, corrmap) through
     the kernels: launches (set to 0 just before, read just after), two-run
-    determinism, valid share, time. Returns (results, disparity,
-    corrmap)."""
+    determinism, valid share, time. The disparity must be ``dtype``
+    (float32 by default; int16, with -32768 invalid, where the call has no
+    subpixel step). Returns (results, disparity as float32 with NaN
+    invalid, corrmap)."""
+    from libbicos_tpu_torch import search as ts
     from libbicos_tpu_torch.kernels import _build
+
+    dtype = dtype or torch.float32
+
+    def as_float(d):
+        if d.dtype != torch.int16:
+            return d
+        return torch.where(d == ts.INVALID_I16, float("nan"), d.float())
 
     _build.reset_launch_counts()
     d1, c1 = call("cuda")
@@ -897,13 +946,16 @@ def call_case(torch, label, call, expect, truth):
     if launches != expect:
         fail(f"call {label} launched {launches}, expected {expect}")
     d2, c2 = call("cuda")
+    if d1.dtype != dtype:
+        fail(f"call {label} disparity is {d1.dtype}, expected {dtype}")
+    d1, d2 = as_float(d1), as_float(d2)
     for a, b, what in ((d1, d2, "disparity"), (c1, c2, "corrmap")):
         if not (torch.equal(torch.isnan(a), torch.isnan(b))
                 and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))):
             fail(f"two runs of call {label} gave different {what}")
     h, w = truth.shape
-    if d1.shape != (h, w) or d1.dtype != torch.float32:
-        fail(f"call {label} disparity is {tuple(d1.shape)} {d1.dtype}")
+    if d1.shape != (h, w):
+        fail(f"call {label} disparity is {tuple(d1.shape)}")
     valid = ~torch.isnan(d1)
     if not bool(torch.isfinite(d1[valid]).all()):
         fail(f"call {label}: valid disparities are not finite")
@@ -1513,7 +1565,7 @@ def main() -> None:
     print(f"kernel library: {_build.library_path().name}, "
           f"{'built' if fresh else 'found'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    build_report(_build.library_path())
+    full_per_pixel = build_report(_build.library_path())
     dev = torch.device("cuda", 0)
 
     # Phase 2: each kernel against its plain version.
@@ -1568,75 +1620,103 @@ def main() -> None:
     torch.cuda.synchronize()
     print("phase 2: every kernel agrees with its plain version", flush=True)
 
-    # Phase 3: four calls at full size, each with the kernels of its path.
+    # Phase 3: five calls at full size, each with the kernels of its path.
     check_transform(torch, "headline", (s0, s1), mode)
+    # full16's stacks: the first 16 shots, n=16 u8 FULL (8 words a pixel).
+    full_mode = bicos.TransformMode.FULL
+    k0, k1 = s0[:16].contiguous(), s1[:16].contiguous()
+    check_transform(torch, "n=16 2200x3300 u8 FULL", (k0, k1), full_mode)
     w0 = descriptor_words_cuda(s0, mode)
     w1 = descriptor_words_cuda(s1, mode)
+    stacks = {mode: (s0, s1, w0, w1),
+              full_mode: (k0, k1, descriptor_words_cuda(k0, full_mode),
+                          descriptor_words_cuda(k1, full_mode))}
     mv = MIN_VARIANCE * n
     nx = len(ta.subpixel_xgrid(STEP))
     path = {k: 0 for k in KERNELS}
     nodup_path = {**path, "transform": 2, "hamming": 1, "agree": 1}
     cons_path = {**path, "transform": 2, "consistency": 1, "agree": 1}
+
+    def headline(variant, drange):
+        return bicos.Config(nxcorr_threshold=THRESHOLD, subpixel_step=STEP,
+                            min_variance=MIN_VARIANCE, mode=mode,
+                            variant=variant, disparity_range=drange)
+
     calls = {
-        "A": (bicos.NoDuplicates(), None, nodup_path),
-        "B": (bicos.Consistency(1, True), None, cons_path),
-        "C": (bicos.NoDuplicates(), DRANGE, nodup_path),
-        "D": (bicos.Consistency(1, True), DRANGE, cons_path),
+        "A": (headline(bicos.NoDuplicates(), None), nodup_path),
+        "B": (headline(bicos.Consistency(1, True), None), cons_path),
+        "C": (headline(bicos.NoDuplicates(), DRANGE), nodup_path),
+        "D": (headline(bicos.Consistency(1, True), DRANGE), cons_path),
+        # full16's configuration (portbench/configs/full16.json): the
+        # 8-word scan and the integer agree.
+        "N": (bicos.Config(nxcorr_threshold=0.9, mode=full_mode),
+              nodup_path),
     }
     results, scans, single, search_disp, cfgs = {}, {}, {}, {}, {}
-    for label, (variant, drange, expect) in calls.items():
-        cfg = bicos.Config(nxcorr_threshold=THRESHOLD, subpixel_step=STEP,
-                           min_variance=MIN_VARIANCE, mode=mode,
-                           variant=variant, disparity_range=drange)
+    for label, (cfg, expect) in calls.items():
+        variant, drange = cfg.variant, cfg.disparity_range
+        thr, step = cfg.nxcorr_threshold, cfg.subpixel_step
+        a, b, wa, wb = stacks[cfg.mode]
+        amv = None if cfg.min_variance is None else cfg.min_variance * len(a)
         cfgs[label] = cfg
         res, d1, c1 = call_case(
             torch, label,
-            lambda backend, cfg=cfg: bicos.match(s0, s1, cfg, corrmap=True,
-                                                 backend=backend),
-            expect, truth)
+            lambda backend, a=a, b=b, cfg=cfg: bicos.match(
+                a, b, cfg, corrmap=True, backend=backend),
+            expect, truth, None if step else torch.int16)
         single[label] = (d1, c1)
         # The call's scan kernel against its plain version at its shapes.
         if isinstance(variant, bicos.NoDuplicates):
             kname = "hamming"
-            (first, last), plain_ms = check_scan(torch, f"call {label}", w0,
-                                                 w1, drange)
+            (first, last), plain_ms = check_scan(torch, f"call {label}", wa,
+                                                 wb, drange)
             disp = ts._finish_nodupes(first, last, w)
             kms = time_ms(torch, lambda: row_minima_words(
-                w0, w1, True, drange=drange))
+                wa, wb, True, drange=drange))
         else:
             kname = "consistency"
-            out, plain_ms = check_consistency(torch, f"call {label}", w0, w1,
+            out, plain_ms = check_consistency(torch, f"call {label}", wa, wb,
                                               True, drange)
             disp = ts._finish_gathered(variant, *out)
             kms = time_ms(torch, lambda: row_minima_consistency_words(
-                w0, w1, no_dupes=True, drange=drange))
-        if not torch.equal(ts.search_stack(s0, s1, mode, variant, "cuda",
+                wa, wb, no_dupes=True, drange=drange))
+        if not torch.equal(ts.search_stack(a, b, cfg.mode, variant, "cuda",
                                            drange=drange), disp):
             fail(f"call {label}: the kernels' search disparity differs "
                  "from the plain scan's")
-        check_agree(torch, f"call {label}", disp, s0, s1, THRESHOLD, STEP,
-                    mv)
-        ams = time_ms(torch, lambda: agree_cuda(disp, s0, s1, THRESHOLD,
-                                                STEP, mv))
+        check_agree(torch, f"call {label}", disp, a, b, thr, step, amv)
+        ams = time_ms(torch, lambda: agree_cuda(disp, a, b, thr, step, amv))
+        if step is None:
+            aplain = time_ms(torch, lambda: ta.agree_integer(
+                disp, a, b, thr, amv), reps=1, warm=0)
+        else:
+            aplain = time_ms(torch, lambda: ta.agree_subpixel(
+                disp, a, b, thr, step, amv), reps=1, warm=0)
+        anx = len(ta.subpixel_xgrid(step)) if step else 0
         scans[label] = (kname, kms, plain_ms)
-        res.update(variant=repr(variant), drange=drange, scan=kname,
-                   scan_ms=kms, scan_plain_ms=plain_ms, agree_ms=ams,
+        res.update(variant=repr(variant), mode=cfg.mode.name, n=len(a),
+                   words=wa.shape[2], threshold=thr, step=step,
+                   drange=drange, scan=kname, scan_ms=kms,
+                   scan_plain_ms=plain_ms, agree_ms=ams,
+                   agree_plain_ms=aplain,
                    scan_bound_ms=scan_bound(
-                       h, w, w0.shape[2], drange,
+                       h, w, wa.shape[2], drange,
                        8 if kname == "hamming" else 16)[0],
-                   agree_bound_ms=agree_bound(torch, disp, s0, s1, nx)[0],
+                   agree_bound_ms=agree_bound(torch, disp, a, b, anx)[0],
                    agree_bound_conv_pipe_ms=agree_bound(
-                       torch, disp, s0, s1, nx, conv_pipe=True)[0])
+                       torch, disp, a, b, anx, conv_pipe=True)[0])
         results[label] = res
         search_disp[label] = disp
-        print(f"call {label} ({variant!r}, range {drange}): "
+        print(f"call {label} (n={len(a)} {cfg.mode.name}, {wa.shape[2]} "
+              f"words, {variant!r}, range {drange}, step {step}): "
               f"{res['ms']:.3f} ms with the kernels, {res['plain_ms']:.1f} "
-              f"ms plain; {kname} kernel {kms:.3f} ms, plain "
-              f"{plain_ms:.1f} ms; agree kernel {ams:.3f} ms (bound "
+              f"ms plain; {kname} kernel {kms:.3f} ms (bound "
+              f"{res['scan_bound_ms']:.3f} ms), plain {plain_ms:.1f} ms; "
+              f"agree kernel {ams:.3f} ms (bound "
               f"{res['agree_bound_ms']:.3f} ms, "
               f"{res['agree_bound_conv_pipe_ms']:.3f} ms with the roundings "
-              f"and casts on the conversion pipe); peak device "
-              f"memory {res['peak_bytes']} bytes, "
+              f"and casts on the conversion pipe), plain {aplain:.1f} ms; "
+              f"peak device memory {res['peak_bytes']} bytes, "
               f"{res['call_peak_bytes']} above what was held before the "
               f"call ({card})", flush=True)
 
@@ -1872,6 +1952,13 @@ def main() -> None:
 
     transform_dt = device_times(torch, lambda: descriptor_words_cuda(
         s0, mode), "transform_kernel", graph=False)
+    full_dt = device_times(torch, lambda: descriptor_words_cuda(
+        k0, full_mode), "transform_kernel", graph=False)
+    full_dt["plain_ms"] = time_ms(
+        torch, lambda: td.descriptor_words(k0, full_mode), reps=3)
+    full_dt["bound_ms"], full_dt["bound_by"] = bound(
+        k0.numel() + stacks[full_mode][2].numel() * 4)
+    full_dt["sass_per_pixel"] = full_per_pixel.get("transform_kernel<u8,16>")
     timings = {
         "transform": (
             transform_dt["ms"],
@@ -1908,6 +1995,12 @@ def main() -> None:
         print(f"  {k}: kernel {kms:.3f} ms, plain {pms:.3f} ms, bound "
               f"{bounds[k][0]:.4f} ms by {bounds[k][1]} ({card})",
               flush=True)
+    print(f"  transform FULL n=16 {h}x{w} u8: kernel {full_dt['ms']:.4f} ms "
+          f"(flushed {full_dt['cold_ms']:.4f}, profiler "
+          f"{full_dt['profiler_ms']}), plain {full_dt['plain_ms']:.3f} ms, "
+          f"bound {full_dt['bound_ms']:.4f} ms by {full_dt['bound_by']}, "
+          f"{full_dt['sass_per_pixel']} SASS instructions a pixel ({card})",
+          flush=True)
     print(json.dumps({"calls": results, **results_extra,
                       "shape": list(HEADLINE),
                       "dtype": "uint8", "mode": "LIMITED",
@@ -1928,7 +2021,9 @@ def main() -> None:
          # an event pair, the wrapper's host work included.
          **({x: many[k][x] for x in ("call_ms", "cold_ms", "profiler_ms",
                                      "profiler_cold_ms")}
-            if k in many else {})}
+            if k in many else {}),
+         # The FULL transform of call N's left stack (n=16 u8 FULL).
+         **({"full16": full_dt} if k == "transform" else {})}
         for k in KERNELS
     ]
     print(card, flush=True)

@@ -10,8 +10,9 @@
 // back).
 //
 // Bound on the card: device memory. A pixel reads its n samples and writes
-// nw words (n=33 u8 LIMITED: 33 B in, 16 B out). The design moves both
-// sides in whole vectors:
+// nw words (n=33 u8 LIMITED: 33 B in, 16 B out; n=16 u8 FULL: 16 B in, 32 B
+// out). The design moves both sides in whole vectors and spends two
+// integer instructions a bit:
 // * one block takes a tile of kTile consecutive pixels and copies the
 //   tile's row of every shot into shared memory with cp.async, 16 bytes a
 //   copy (16 u8 or 8 u16 pixels), all n rows in flight at once; a plane
@@ -22,14 +23,23 @@
 //   one block's copies with the others' arithmetic;
 // * the series is read from device memory once: the sum and the
 //   comparisons read the shared-memory copy;
-// * a thread builds its pixel's LIMITED words at two instructions a bit
-//   (limited_words: the sign of an int difference, funnel-shifted into a
-//   32-bit block, 8 shot groups a block, one bit reversal at its end; n < 4
-//   and FULL go through a 64-bit accumulator instead), and writes them as
-//   whole 16-byte stores where nw is a multiple of 4 (8-byte where even),
-//   so a warp writes contiguous bytes.
+// * every bit is the sign of an exact int difference, funnel-shifted into
+//   a 32-bit block (push), with one bit reversal a block. The two modes are
+//   two kernels, since they differ in how the bits are ordered and how many
+//   there are:
+//   - LIMITED (4n - 7 bits, any n): one kernel over a runtime n
+//     (limited_words: 8 shot groups a block; n = 2, 3 build their one word
+//     of 4 or 7 bits directly);
+//   - FULL (n^2 - 2n + 3 bits, so n = 2..16 within 256): one fully unrolled
+//     kernel per (T, n) (full_words). The n samples are read from shared
+//     memory into registers once, and the n - 1 pair sums and n mean
+//     differences formed once; each series and pair-sum bit is then one
+//     int difference and one funnel shift, and every word boundary is a
+//     compile-time constant;
+// * a pixel's words leave as whole 16-byte stores where nw is a multiple
+//   of 4 (8-byte where even), so a warp writes contiguous bytes.
 // The mean bit uses the exact integer form n*s[t] < sum: no divide; every
-// comparison is the sign bit of an exact int difference.
+// comparison is the sign bit of an exact int difference (|d| < 2^31).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,14 +68,11 @@ __device__ __forceinline__ uint32_t lt(int x, int y) {
   return static_cast<uint32_t>(x - y) >> 31;
 }
 
-// A pixel's words: bits go into a 64-bit accumulator, each finished word
-// into a buffer of vw words (4, 2 or 1: the largest dividing nw) that
-// leaves as one store.
+// A LIMITED pixel's words, each into a buffer of vw words (4, 2 or 1: the
+// largest dividing nw) that leaves as one store.
 struct WordOut {
   uint32_t* out;
   int vw;
-  uint64_t acc = 0;
-  int pos = 0;
   uint32_t b0 = 0, b1 = 0, b2 = 0;
   int nb = 0;
 
@@ -82,19 +89,6 @@ struct WordOut {
     else *out = v;
     out += vw;
     nb = 0;
-  }
-  // The k <= 4 low bits of `bits`, next in append order.
-  __device__ void put(uint32_t bits, int k) {
-    acc |= static_cast<uint64_t>(bits) << pos;
-    pos += k;
-    if (pos >= 32) {
-      word(static_cast<uint32_t>(acc));
-      acc >>= 32;
-      pos -= 32;
-    }
-  }
-  __device__ void flush() {
-    if (pos) word(static_cast<uint32_t>(acc));
   }
 };
 
@@ -173,11 +167,25 @@ __device__ __forceinline__ void stage_chunk(const T* src, T* dst, int q,
   }
 }
 
-// The words of one staged tile (np pixels from p0).
+// Copies the tile (np pixels from p0) of each of the n shots into shared
+// memory, (n, kTile), and waits for the copies.
+template <typename T>
+__device__ __forceinline__ void stage_tile(const T* stack, T* tile, int n,
+                                           int64_t hw, int64_t p0, int np) {
+  constexpr int kChunks = kTile * sizeof(T) / 16;  // a row
+  for (int k = threadIdx.x; k < n * kChunks; k += kThreads) {
+    const int t = k / kChunks;
+    stage_chunk(stack + t * hw + p0, tile + t * kTile, k - t * kChunks, np);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The LIMITED words of one staged tile (np pixels from p0).
 template <typename T>
 __device__ __forceinline__ void tile_words(const T* tile, uint32_t* words,
                                            int64_t p0, int np, int n,
-                                           int full, int nw) {
+                                           int nw) {
   const int vw = nw % 4 == 0 ? 4 : nw % 2 == 0 ? 2 : 1;
   for (int j = threadIdx.x; j < np; j += kThreads) {
     const T* s = tile + j;
@@ -186,78 +194,179 @@ __device__ __forceinline__ void tile_words(const T* tile, uint32_t* words,
     for (int t = 0; t < n; ++t) total += at(t);
 
     WordOut wr{words + (p0 + j) * nw, vw};
-    if (!full && n >= 4) {
+    if (n >= 4) {
       limited_words(at, n, total, wr);
       continue;
     }
+    // n = 2, 3: one word. Shot 0's group (n = 3), then the closing group,
+    // whose pair-sum bit is 1 (the reference's pair-sum slot is still -1).
+    uint32_t v = 0;
     int a = at(0), b = at(1);
-    if (!full) {
-      // n = 2, 3: shot 0's group (n = 3), then the closing group, whose
-      // pair-sum bit is 1 (the reference's pair-sum slot is still -1).
-      if (n == 3) {
-        wr.put(lt(a, b) | lt(a, at(2)) << 1 | lt(n * a, total) << 2, 3);
-        a = b;
-        b = at(2);
-      }
-      wr.put(lt(a, b) | lt(n * a, total) << 1 | lt(n * b, total) << 2 |
-                 1u << 3,
-             4);
-    } else {
-      for (int t = 0; t < n - 2; ++t) {
-        const int c = at(t + 2);
-        wr.put(lt(a, b) | lt(a, c) << 1 | lt(n * a, total) << 2, 3);
-        a = b;
-        b = c;
-      }
-      wr.put(lt(a, b) | lt(n * a, total) << 1 | lt(n * b, total) << 2, 3);
-      for (int t = 0; t < n - 1; ++t) {
-        const int pt = at(t) + at(t + 1);
-        for (int i = 0; i < n - 1; ++i) {
-          if (i >= t - 1 && i <= t + 1) continue;
-          wr.put(lt(pt, at(i) + at(i + 1)), 1);
-        }
-      }
+    if (n == 3) {
+      v = lt(a, b) | lt(a, at(2)) << 1 | lt(n * a, total) << 2;
+      a = b;
+      b = at(2);
     }
-    wr.flush();
+    wr.word(v | (lt(a, b) | lt(n * a, total) << 1 | lt(n * b, total) << 2 |
+                 1u << 3) << 3 * (n - 2));
   }
 }
 
+// FULL allows n^2 - 2n + 3 <= 256 bits: n = 2..16.
+constexpr int kMaxFull = 16;
+
+// FULL's words for n shots.
+__host__ __device__ constexpr int full_nw(int n) {
+  return (n * n - 2 * n + 3 + 31) / 32;
+}
+
+// Bits in append order, 32 to a block: one funnel shift a bit, one bit
+// reversal a block. Every call site is fully unrolled, so k, and with it
+// the register each block lands in, is a compile-time constant.
+template <int NW>
+struct Blocks {
+  uint32_t w[NW] = {};
+  uint32_t acc = 0;
+  int k = 0;
+  // Appends x < y, given d = x - y.
+  __device__ __forceinline__ void bit(int d) {
+    acc = push(acc, d);
+    if (++k % 32 == 0) w[k / 32 - 1] = __brev(acc);
+  }
+  // The last block, if partial: its bits at the bottom, the rest 0.
+  __device__ __forceinline__ void close() {
+    if (k % 32) w[NW - 1] = __brev(acc) >> (32 - k % 32);
+  }
+};
+
+// The FULL words of the staged pixel at s (shot t at s[t * kTile]) into
+// out, in the reference's order: for t < N - 2 the series bits s[t] <
+// s[t+1], s[t] < s[t+2] and n s[t] < sum; s[N-2] < s[N-1] and the mean bits
+// of shots N-2 and N-1; then p[t] < p[i] for each pair sum p[t] = s[t] +
+// s[t+1] and each i outside t-1..t+1.
+template <int N, typename T>
+__device__ __forceinline__ void full_words(const T* s, uint32_t* out) {
+  constexpr int NW = full_nw(N);
+  int x[N], m[N], p[N - 1];
+  int total = 0;
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    x[t] = s[t * kTile];
+    total += x[t];
+  }
+#pragma unroll
+  for (int t = 0; t < N; ++t) m[t] = N * x[t] - total;
+#pragma unroll
+  for (int t = 0; t < N - 1; ++t) p[t] = x[t] + x[t + 1];
+  Blocks<NW> b;
+#pragma unroll
+  for (int t = 0; t < N - 2; ++t) {
+    b.bit(x[t] - x[t + 1]);
+    b.bit(x[t] - x[t + 2]);
+    b.bit(m[t]);
+  }
+  b.bit(x[N - 2] - x[N - 1]);
+  b.bit(m[N - 2]);
+  b.bit(m[N - 1]);
+#pragma unroll
+  for (int t = 0; t < N - 1; ++t) {
+#pragma unroll
+    for (int i = 0; i < N - 1; ++i) {
+      if (i < t - 1 || i > t + 1) b.bit(p[t] - p[i]);
+    }
+  }
+  b.close();
+  if constexpr (NW % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < NW; q += 4) {
+      *reinterpret_cast<uint4*>(out + q) =
+          make_uint4(b.w[q], b.w[q + 1], b.w[q + 2], b.w[q + 3]);
+    }
+  } else if constexpr (NW % 2 == 0) {
+#pragma unroll
+    for (int q = 0; q < NW; q += 2) {
+      *reinterpret_cast<uint2*>(out + q) = make_uint2(b.w[q], b.w[q + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < NW; ++q) out[q] = b.w[q];
+  }
+}
+
+// LIMITED, any n.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     transform_kernel(const T* __restrict__ stack, uint32_t* __restrict__ words,
-                     int n, int64_t hw, int full, int nw) {
+                     int n, int64_t hw, int nw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);  // (n, kTile)
   const int64_t p0 = blockIdx.x * static_cast<int64_t>(kTile);
   const int np = hw - p0 < kTile ? static_cast<int>(hw - p0) : kTile;
-  constexpr int kChunks = kTile * sizeof(T) / 16;  // a row
-  for (int k = threadIdx.x; k < n * kChunks; k += kThreads) {
-    const int t = k / kChunks;
-    stage_chunk(stack + t * hw + p0, tile + t * kTile, k - t * kChunks, np);
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-  tile_words(tile, words, p0, np, n, full, nw);
+  stage_tile(stack, tile, n, hw, p0, np);
+  tile_words(tile, words, p0, np, n, nw);
+}
+
+// FULL, N shots.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    transform_kernel(const T* __restrict__ stack, uint32_t* __restrict__ words,
+                     int64_t hw) {
+  __shared__ __align__(16) T tile[N * kTile];
+  const int64_t p0 = blockIdx.x * static_cast<int64_t>(kTile);
+  const int np = hw - p0 < kTile ? static_cast<int>(hw - p0) : kTile;
+  stage_tile(stack, tile, N, hw, p0, np);
+  for (int j = threadIdx.x; j < np; j += kThreads)
+    full_words<N>(tile + j, words + (p0 + j) * full_nw(N));
+}
+
+template <typename K>
+cudaError_t prefer_shared(K* kern) {
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+unsigned tiles(int64_t hw) {
+  return static_cast<unsigned>((hw + kTile - 1) / kTile);
 }
 
 template <typename T>
-int launch(const T* stack, uint32_t* words, int n, int64_t hw, int full,
-           int nw, cudaStream_t st) {
+int launch_limited(const T* stack, uint32_t* words, int n, int64_t hw,
+                   int nw, cudaStream_t st) {
   const size_t bytes = static_cast<size_t>(n) * kTile * sizeof(T);
-  auto* kern = transform_kernel<T>;
-  if (cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-          cudaSharedmemCarveoutMaxShared))
-    return static_cast<int>(e);
+  void (*kern)(const T*, uint32_t*, int, int64_t, int) = transform_kernel<T>;
+  if (cudaError_t e = prefer_shared(kern)) return static_cast<int>(e);
   if (bytes > 48 * 1024) {
     if (cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(bytes)))
       return static_cast<int>(e);
   }
-  const unsigned blocks = static_cast<unsigned>((hw + kTile - 1) / kTile);
-  kern<<<blocks, kThreads, bytes, st>>>(stack, words, n, hw, full, nw);
+  kern<<<tiles(hw), kThreads, bytes, st>>>(stack, words, n, hw, nw);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The FULL kernel of n shots (N, N + 1, ... kMaxFull are tried in turn).
+template <typename T, int N = 2>
+int launch_full(const T* stack, uint32_t* words, int n, int64_t hw, int nw,
+                cudaStream_t st) {
+  if constexpr (N > kMaxFull) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (n != N) return launch_full<T, N + 1>(stack, words, n, hw, nw, st);
+    if (nw != full_nw(N)) return static_cast<int>(cudaErrorInvalidValue);
+    void (*kern)(const T*, uint32_t*, int64_t) = transform_kernel<T, N>;
+    if (cudaError_t e = prefer_shared(kern)) return static_cast<int>(e);
+    kern<<<tiles(hw), kThreads, 0, st>>>(stack, words, hw);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <typename T>
+int launch(const T* stack, uint32_t* words, int n, int64_t hw, int full,
+           int nw, cudaStream_t st) {
+  return full ? launch_full(stack, words, n, hw, nw, st)
+              : launch_limited(stack, words, n, hw, nw, st);
 }
 
 }  // namespace

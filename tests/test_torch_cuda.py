@@ -40,12 +40,23 @@ def _pair(dev, n, h, w, dtype=np.uint8, seed=11):
     (2, "LIMITED", np.uint8), (3, "LIMITED", np.uint16),
     (33, "LIMITED", np.uint8), (65, "LIMITED", np.uint16),
     (4, "FULL", np.uint8), (16, "FULL", np.uint16),
+    # every other FULL kernel: n = 2..16, u8 and u16
+    *((n, "FULL", dtype) for n in range(2, 17)
+      for dtype in (np.uint8, np.uint16)
+      if (n, dtype) not in ((4, np.uint8), (16, np.uint16))),
 ])
 def test_transform_kernel_bit_identical(dev, n, mode, dtype):
-    s0, _ = _pair(dev, n, 9, 300, dtype)
+    """The synthetic pattern; 2 and 3 gray levels, where ties between
+    samples and between pair sums are common; 4 levels at the top of the
+    dtype, where u16 pair sums pass 16 bits: bit-identical to the plain
+    transform."""
+    s, _, _ = synthetic_stack_pair(n, 9, 300, dtype=dtype, seed=11)
+    top = np.iinfo(dtype).max
     m = tb.TransformMode[mode]
-    assert torch.equal(descriptor_words_cuda(s0, m),
-                       td.descriptor_words(s0, m))
+    for v in (s, s % 2, s % 3, top - s % 4):
+        s0 = torch.from_numpy(np.ascontiguousarray(v, dtype=dtype)).to(dev)
+        assert torch.equal(descriptor_words_cuda(s0, m),
+                           td.descriptor_words(s0, m))
 
 
 @pytest.mark.parametrize("n, mode, w", [
@@ -873,6 +884,18 @@ def test_agree_kernel_edges(dev, case, step):
     (2, "FULL", np.uint8, 3, 301, None),
     (3, "FULL", np.uint8, 4, 517, "view"),
     (16, "FULL", np.uint16, 5, 203, None),
+    # FULL at each store width (nw = 8, 4, 6: 16-byte, 8-byte; 2, 3, 7:
+    # scalar), a ragged last tile, unaligned planes, a view, a row band.
+    (16, "FULL", np.uint8, 7, 301, None),
+    (16, "FULL", np.uint8, 3, 517, "view"),
+    (16, "FULL", np.uint8, 4, 1536, None),        # whole tiles, aligned
+    (16, "FULL", np.uint16, 6, 1111, "rows"),
+    (16, "FULL", np.uint16, 4, 517, "view"),
+    (11, "FULL", np.uint8, 4, 1600, None),
+    (14, "FULL", np.uint16, 3, 999, None),
+    (7, "FULL", np.uint8, 5, 1030, "view"),
+    (9, "FULL", np.uint16, 6, 1001, "rows"),
+    (15, "FULL", np.uint8, 5, 333, None),
 ])
 def test_transform_kernel_edges(dev, n, mode, dtype, h, w, cut):
     """Ragged tails (h*w not a multiple of 4 or 16, odd widths), plane
