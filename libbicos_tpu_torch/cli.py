@@ -325,14 +325,11 @@ def _dump_descriptors(args, cfg: Config, l_dev, r_dev) -> None:
     as the JAX CLI writes them), checked by ``debug`` when enabled."""
     from . import debug as _debug
     from .config import validate_stack
-    from .search import resolve_backend
+    from .search import resolve_backend, transform_words
 
-    if resolve_backend(args.backend, l_dev) == "cuda":
-        from .kernels.transform import descriptor_words_cuda as transform
-    else:
-        from .descriptor import descriptor_words as transform
-    words0, words1 = (transform(s, cfg.mode).cpu().numpy().view(np.uint32)
-                      for s in (l_dev, r_dev))
+    backend = resolve_backend(args.backend, l_dev)
+    words0, words1 = (transform_words(s, cfg.mode, backend).cpu().numpy()
+                      .view(np.uint32) for s in (l_dev, r_dev))
     if _debug.enabled():
         nbits = validate_stack(l_dev.shape[0], cfg.mode)
         _debug.check_descriptor_words(words0, nbits)

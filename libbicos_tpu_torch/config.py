@@ -118,6 +118,12 @@ def config_from_reference(obj) -> Config:
 
 INVALID_DISP_INT16 = np.int16(-32768)
 INVALID_DISP_FLOAT = float("nan")
+# The scans' packed minima: ``cost * PACK_K + col`` (PACK_K widened to the
+# next power of two for rows wider than it). BIG stands in for an
+# out-of-range pair: above every real packing at every pack width up to
+# 2^22 (decoded cost > 256), as in the JAX scan.
+PACK_K = 32768
+BIG = 0x7F000000
 
 
 def invalid_disparity(dtype) -> float:

@@ -4,13 +4,15 @@ The Hopper counterpart of the Pallas ``libbicos_tpu/kernels/agree.py``
 kernels ``_agree_kernel`` and ``_agree_window_kernel`` (via
 ``agree_pallas``). Its plain versions are
 :func:`libbicos_tpu_torch.agree.agree_integer` and
-:func:`~libbicos_tpu_torch.agree.agree_subpixel`. The kernel computes in
-float32 (SINGLE) or float64 (DOUBLE, ``precision``), and reads the right
-series from global memory or, with per (row, chunk) ``bases`` (the dynamic
-window, ``BICOS_AGREE_DYNWIN``), from a window of them staged in shared
-memory; both variants run the same arithmetic, so their results are equal
-bit for bit. Each thread caches its pixel's per-shot terms in shared memory
-(``csrc/agree.cu``); the windowed block puts them beside its window.
+:func:`~libbicos_tpu_torch.agree.agree_subpixel`;
+:func:`libbicos_tpu_torch.pipeline.agree_stage` chooses between them. The
+kernel computes in float32 (SINGLE) or float64 (DOUBLE, ``precision``),
+and reads the right series from global memory or, with per (row, chunk)
+``bases`` (the dynamic window, ``BICOS_AGREE_DYNWIN``), from a window of
+them staged in shared memory; both variants run the same arithmetic, so
+their results are equal bit for bit. Each thread caches its pixel's
+per-shot terms in shared memory (``csrc/agree.cu``); the windowed block
+puts them beside its window.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import agree as _agree
+from ..agree import subpixel_xgrid
 from ..config import Precision
 from . import _build
 
@@ -73,18 +75,8 @@ def agree_cuda(disp: torch.Tensor, stack0: torch.Tensor,
     :func:`libbicos_tpu_torch.agree.agree_subpixel`). ``bases``: ``(H, wp //
     chunk)`` int32 from :func:`~libbicos_tpu_torch.agree.chunk_window_bases`
     for the windowed variant (``W1 == W``, ``col_offset == 0``); a chunk
-    whose base is -1 reads global memory. CPU tensors go through the plain
-    versions (which read any column and ignore ``bases``); CUDA tensors
-    launch the kernel."""
-    if all(t.device.type == "cpu" for t in (disp, stack0, stack1)):
-        if step is not None:
-            return _agree.agree_subpixel(disp, stack0, stack1, threshold,
-                                         step, minvar, col_offset, precision)
-        out, corr = _agree.agree_integer(disp, stack0, stack1, threshold,
-                                         minvar, col_offset, precision)
-        nan = torch.tensor(float("nan"), dtype=torch.float32)
-        return torch.where(out == _agree.INVALID_I16, nan,
-                           out.to(torch.float32)), corr
+    whose base is -1 reads global memory. Every tensor lies on one CUDA
+    device."""
     _build.require_cuda("agree_cuda", disp, stack0, stack1,
                         *(() if bases is None else (bases,)))
     if (stack0.dim() != 3 or stack1.dim() != 3
@@ -125,7 +117,7 @@ def agree_cuda(disp: torch.Tensor, stack0: torch.Tensor,
             raise RuntimeError(
                 f"the agree window needs {need} bytes of shared memory "
                 f"(n={n}, wcap={wcap}); the device allows {limit}")
-    xs = torch.tensor(_agree.subpixel_xgrid(step) if step is not None else [],
+    xs = torch.tensor(subpixel_xgrid(step) if step is not None else [],
                       dtype=torch.float32, device=dev)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     corr = torch.empty_like(out)

@@ -13,6 +13,9 @@ the transform kernel on each band, ``_minima_kernel_band_stack`` (via
   band and the reverse minima of the visiting band from one pass over the
   pairs, where the TPU runs a second ring; its plain version is
   :func:`libbicos_tpu_torch.search.row_minima_consistency_band_torch_words`.
+
+``sharding._ring_minima`` and ``sharding._ring_consistency`` choose
+between each kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -21,11 +24,7 @@ from typing import Optional
 
 import torch
 
-from ..search import (
-    PACK_K,
-    row_minima_band_torch_words,
-    row_minima_consistency_band_torch_words,
-)
+from ..config import PACK_K
 from . import _build
 from .hamming import check_words, range_args
 
@@ -40,14 +39,10 @@ def row_minima_band(words0: torch.Tensor, words1: torch.Tensor, off0: int,
     ``words0``: ``(H, W0b, nw)`` int32 left band at global column ``off0``;
     ``words1``: ``(H, band, nw)`` int32 right band at global column
     ``off1``; ``mf``/``ml``: ``(H, W0b)`` int32, started from
-    ``search.BIG``. Right columns at or past ``w1_total`` and pairs whose
-    global ``col0 - col1`` lies outside ``drange`` are skipped. CPU tensors
-    go through the plain version; CUDA tensors launch the kernel."""
+    ``config.BIG``, all on one CUDA device. Right columns at or past
+    ``w1_total`` and pairs whose global ``col0 - col1`` lies outside
+    ``drange`` are skipped."""
     accs = [t for t in (mf, ml) if t is not None]
-    if all(t.device.type == "cpu" for t in [words0, words1] + accs):
-        row_minima_band_torch_words(words0, words1, off0, off1, mf, ml,
-                                    w1_total=w1_total, drange=drange)
-        return
     h, w0, band, nw = check_words("row_minima_band", words0, words1)
     _build.require_cuda("row_minima_band", words0, *accs)
     if any(t.dtype != torch.int32 or tuple(t.shape) != (h, w0)
@@ -87,17 +82,11 @@ def row_minima_consistency_band(words0: torch.Tensor, words1: torch.Tensor,
     ``words1``: ``(H, band, nw)`` int32 right band at global column
     ``off1``; ``mf``/``ml``: ``(H, W0b)`` int32; ``rf``/``rl``: ``(H, N)``
     int32 with ``N >= off1 + band`` (``ml`` and ``rl`` both None without
-    last), all started from ``search.BIG``. Columns at or past ``w_total``
-    and pairs whose global ``col0 - col1`` lies outside ``drange`` are
-    skipped. CPU tensors go through the plain version; CUDA tensors launch
-    the kernel."""
+    last), all started from ``config.BIG`` on one CUDA device. Columns at
+    or past ``w_total`` and pairs whose global ``col0 - col1`` lies outside
+    ``drange`` are skipped."""
     fwd = [t for t in (mf, ml) if t is not None]
     rev = [t for t in (rf, rl) if t is not None]
-    if all(t.device.type == "cpu" for t in [words0, words1] + fwd + rev):
-        row_minima_consistency_band_torch_words(
-            words0, words1, off0, off1, mf, ml, rf, rl, w_total=w_total,
-            drange=drange)
-        return
     h, w0, band, nw = check_words("row_minima_consistency_band", words0,
                                   words1)
     _build.require_cuda("row_minima_consistency_band", words0, *fwd, *rev)

@@ -14,7 +14,6 @@ import functools
 
 import torch
 
-from .. import agree as _agree
 from . import _build
 
 
@@ -28,11 +27,8 @@ def _entry():
 def chunk_window_bases_cuda(disp: torch.Tensor, w: int, wp: int, wcap: int,
                             chunk: int) -> torch.Tensor:
     """Per (row, ``chunk`` columns) window base or -1: ``(H, wp // chunk)``
-    int32 for an ``(H, W)`` int16 disparity (see
-    :func:`libbicos_tpu_torch.agree.chunk_window_bases`). A CPU tensor goes
-    through the plain version; a CUDA tensor launches the kernel."""
-    if disp.device.type == "cpu":
-        return _agree.chunk_window_bases(disp, w, wp, wcap, chunk)
+    int32 for an ``(H, W)`` int16 CUDA disparity (see
+    :func:`libbicos_tpu_torch.agree.chunk_window_bases`)."""
     _build.require_cuda("chunk_window_bases_cuda", disp)
     if disp.dtype != torch.int16 or disp.dim() != 2:
         raise ValueError("disp must be an (H, W) int16 tensor")

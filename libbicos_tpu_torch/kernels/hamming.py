@@ -1,16 +1,14 @@
-"""Hamming row-scan kernel (``csrc/hamming.cu``) and the stack searches.
+"""Hamming row-scan kernel (``csrc/hamming.cu``).
 
-* :func:`row_minima_words` is the Hopper counterpart of the Pallas
-  ``libbicos_tpu/kernels/hamming.py::_minima_kernel`` and its int8 twin
-  ``_minima_kernel_i8`` (via ``row_minima_pallas_words``); its plain version
-  is :func:`libbicos_tpu_torch.search.row_minima_torch_words`.
-* :func:`row_minima_stack` is the counterpart of the fused Pallas
-  ``_minima_kernel_bf16_stack`` and its twin ``_minima_kernel_i8_stack``
-  (via ``row_minima_stack``): the transform kernel on both stacks, then the
-  scan.
-* :func:`row_minima_stack_range` is the counterpart of
-  ``_minima_kernel_bf16_stack_range`` (via ``row_minima_stack_range``): the
-  same, restricted to a disparity range, visiting O(W * range) pairs.
+:func:`row_minima_words` is the Hopper counterpart of the Pallas
+``libbicos_tpu/kernels/hamming.py::_minima_kernel`` and its int8 twin
+``_minima_kernel_i8`` (via ``row_minima_pallas_words``), and after the
+transform kernel on both stacks, of the fused ``_minima_kernel_bf16_stack``,
+its twin ``_minima_kernel_i8_stack`` and ``_minima_kernel_bf16_stack_range``
+(via ``row_minima_stack`` and ``row_minima_stack_range``). Its plain version
+is :func:`libbicos_tpu_torch.search.row_minima_torch_words`;
+``search._scan`` (behind :func:`libbicos_tpu_torch.search.search_words`)
+chooses between them.
 """
 
 from __future__ import annotations
@@ -19,11 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..config import TransformMode
-from ..profiling import span
-from ..search import row_minima_torch_words
 from . import _build
-from .transform import descriptor_words_cuda
 
 
 def check_words(name: str, words0: torch.Tensor, words1: torch.Tensor):
@@ -71,44 +65,17 @@ def row_minima_words(
     ``dmin <= col0 - col1 <= dmax``; a pixel with no candidate gets
     ``first = -1, last = -2``.
 
-    ``words0``: ``(H, W0, nw)`` int32, ``words1``: ``(H, W1, nw)`` int32.
-    CPU tensors go through the plain scan; CUDA tensors launch the
-    kernel."""
-    with span("bicos.scan"):
-        if words0.device.type == "cpu" and words1.device.type == "cpu":
-            _, first, last = row_minima_torch_words(words0, words1, need_last,
-                                                    drange=drange)
-            return first, last
-        h, w0, w1, nw = check_words("row_minima_words", words0, words1)
-        has_range, dmin, dmax = range_args(drange, w0, w1)
-        first = torch.empty((h, w0), dtype=torch.int32, device=words0.device)
-        last = torch.empty_like(first) if need_last else None
-        rc = _build.library().bicos_row_minima(
-            words0.device.index, words0.data_ptr(), words1.data_ptr(),
-            first.data_ptr(), last.data_ptr() if need_last else None,
-            h, w0, w1, nw, int(need_last), has_range, dmin, dmax,
-            _build.stream_of(words0))
-        _build.check(rc, "hamming")
-        _build.count_launch("hamming")
-        return first, last
-
-
-def row_minima_stack(stack0: torch.Tensor, stack1: torch.Tensor, *,
-                     mode: TransformMode, need_last: bool):
-    """Transform + scan straight from ``(n, H, W)`` stacks; returns
-    ``(None, first, last)`` like the JAX ``row_minima_stack``."""
-    first, last = row_minima_words(
-        descriptor_words_cuda(stack0, mode),
-        descriptor_words_cuda(stack1, mode), need_last)
-    return None, first, last
-
-
-def row_minima_stack_range(stack0: torch.Tensor, stack1: torch.Tensor, *,
-                           mode: TransformMode, drange):
-    """Transform + ranged scan from ``(n, H, W)`` stacks; returns ``(None,
-    first, last)`` with the no-candidate sentinels ``-1 / -2``, like the
-    JAX ``row_minima_stack_range``."""
-    first, last = row_minima_words(
-        descriptor_words_cuda(stack0, mode),
-        descriptor_words_cuda(stack1, mode), True, drange=drange)
-    return None, first, last
+    ``words0``: ``(H, W0, nw)`` int32, ``words1``: ``(H, W1, nw)`` int32,
+    on one CUDA device."""
+    h, w0, w1, nw = check_words("row_minima_words", words0, words1)
+    has_range, dmin, dmax = range_args(drange, w0, w1)
+    first = torch.empty((h, w0), dtype=torch.int32, device=words0.device)
+    last = torch.empty_like(first) if need_last else None
+    rc = _build.library().bicos_row_minima(
+        words0.device.index, words0.data_ptr(), words1.data_ptr(),
+        first.data_ptr(), last.data_ptr() if need_last else None,
+        h, w0, w1, nw, int(need_last), has_range, dmin, dmax,
+        _build.stream_of(words0))
+    _build.check(rc, "hamming")
+    _build.count_launch("hamming")
+    return first, last

@@ -36,6 +36,8 @@ import torch
 from . import agree as _agree
 from . import search as _search
 from .config import Config, Precision, validate_stack
+from .kernels.agree import agree_cuda, agree_window
+from .kernels.bases import chunk_window_bases_cuda
 from .profiling import span
 
 
@@ -118,8 +120,6 @@ def _agree_window_params(stack0, cfg: Config):
     test."""
     if cfg.nxcorr_threshold is None or cfg.precision != Precision.SINGLE:
         return None
-    from .kernels.agree import agree_window
-
     w = stack0.shape[2]
     chunk, wcap = agree_window(w)
     if not wcap:
@@ -140,13 +140,9 @@ def agree_stage(disp, stack0, stack1, cfg: Config, backend: str,
                   else cfg.min_variance * stack0.shape[0])
         step = cfg.subpixel_step
         if backend == "cuda":
-            from .kernels.agree import agree_cuda
-
             chunk = wcap = 0
             bases = None
             if window is not None:
-                from .kernels.bases import chunk_window_bases_cuda
-
                 chunk, wcap, wp = window
                 bases = chunk_window_bases_cuda(disp, stack0.shape[2], wp,
                                                 wcap, chunk)

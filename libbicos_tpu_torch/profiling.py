@@ -145,21 +145,16 @@ def stage_timings(stack0, stack1, cfg=None, *, backend: str = "auto",
     from . import pipeline as _pipeline
     from . import search as _search
     from .config import Config, validate_stack
-    from .descriptor import descriptor_words
 
     cfg = cfg or Config()
     s0, s1, backend = _pipeline._prepare(stack0, stack1, cfg, False, backend,
                                          device)
     dev = s0.device
-    if backend == "cuda":
-        from .kernels.transform import descriptor_words_cuda as transform
-    else:
-        transform = descriptor_words
     words = [None, None]
 
     def run_transform():
-        words[0] = transform(s0, cfg.mode)
-        words[1] = transform(s1, cfg.mode)
+        words[0] = _search.transform_words(s0, cfg.mode, backend)
+        words[1] = _search.transform_words(s1, cfg.mode, backend)
 
     t_transform = _timed_ms(run_transform, dev)
     nbits = validate_stack(s0.shape[0], cfg.mode)

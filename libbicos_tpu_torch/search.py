@@ -27,7 +27,10 @@ forward argmin.
 
 Backends: ``"torch"`` is the plain version (CPU or GPU), ``"cuda"`` the
 hand-written kernels, and ``"auto"`` picks ``"cuda"`` for CUDA tensors and
-``"torch"`` otherwise.
+``"torch"`` otherwise. :func:`transform_words` and ``_scan`` (behind
+:func:`search_words` and :func:`search_stack`) are where the transform and
+the scan choose between the two, each inside its span (``bicos.transform``,
+``bicos.scan``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ import torch
 
 from .agree import chunk_window_bases
 from .config import (
+    BIG,
+    PACK_K,
     Consistency,
     NoDuplicates,
     SearchVariant,
@@ -46,16 +51,16 @@ from .config import (
     validate_stack,
 )
 from .descriptor import descriptor_words, pack_bits
+from .kernels.bases import chunk_window_bases_cuda
+from .kernels.consistency import row_minima_consistency_words
+from .kernels.hamming import row_minima_words
+from .kernels.transform import descriptor_words_cuda
 from .profiling import span
 
 INVALID_I16 = -32768
-PACK_K = 32768
 BACKENDS = ("auto", "torch", "cuda")
 # Left-right pairs per chunk of the plain scan: a 256 MiB int32 cost slab.
 PAIR_BUDGET = 1 << 26
-# Stands in for an out-of-range pair: above every real packing at every pack
-# width up to 2^22 (decoded cost > 256), as in the JAX scan.
-BIG = 0x7F000000
 
 
 def resolve_backend(backend: str, *tensors: torch.Tensor) -> str:
@@ -289,67 +294,74 @@ def _finish_nodupes(first: torch.Tensor, last: torch.Tensor,
         return disp.to(torch.int16)
 
 
-def _finish_consistency_gathered(first0, last0, rc0, rok, h: int, w0: int,
-                                 variant: Consistency,
-                                 col_off: int = 0) -> torch.Tensor:
-    """Decode from reverse minima already read at the forward argmin."""
-    col0 = _left_cols(w0, col_off, first0.device)
-    valid = torch.ones((h, w0), dtype=torch.bool, device=first0.device)
-    if variant.no_dupes:
-        valid = first0 == last0
-    # >= 0 guards the range sentinels (forward and reverse); both operands
-    # of the floor division are >= 0 wherever the result is kept.
-    valid = (valid & rok & (first0 >= 0) & (rc0 >= 0)
-             & ((col0 - rc0).abs() <= variant.max_lr_diff))
-    disp = torch.div(col0 + rc0, 2, rounding_mode="floor") - first0
-    return torch.where(valid, disp, INVALID_I16).to(torch.int16)
-
-
 def _finish_gathered(variant: Consistency, first0, last0, rc0, rc0_last,
                      col_off: int = 0):
-    """The reverse no_dupes check (``rc0 == rc0_last``), then the decode."""
+    """Decode from reverse minima already read at the forward argmin; with
+    ``no_dupes`` both searches' minima must be unique (``first0 == last0``,
+    ``rc0 == rc0_last``)."""
     with span("bicos.search_finish"):
-        h, w0 = first0.shape
-        rok = (rc0 == rc0_last if variant.no_dupes
-               else torch.ones((h, w0), dtype=torch.bool,
-                               device=first0.device))
-        return _finish_consistency_gathered(first0, last0, rc0, rok, h, w0,
-                                            variant, col_off)
+        col0 = _left_cols(first0.shape[1], col_off, first0.device)
+        # >= 0 guards the range sentinels (forward and reverse); both
+        # operands of the floor division are >= 0 wherever the result is
+        # kept.
+        valid = ((first0 >= 0) & (rc0 >= 0)
+                 & ((col0 - rc0).abs() <= variant.max_lr_diff))
+        if variant.no_dupes:
+            valid &= (first0 == last0) & (rc0 == rc0_last)
+        disp = torch.div(col0 + rc0, 2, rounding_mode="floor") - first0
+        return torch.where(valid, disp, INVALID_I16).to(torch.int16)
+
+
+def transform_words(stack: torch.Tensor, mode: TransformMode,
+                    backend: str) -> torch.Tensor:
+    """``(n, H, W)`` stack -> ``(H, W, nw)`` int32 descriptor words: the
+    transform kernel on ``backend="cuda"``, the plain transform on
+    ``"torch"`` (a resolved backend, see :func:`resolve_backend`)."""
+    with span("bicos.transform"):
+        if backend == "cuda":
+            return descriptor_words_cuda(stack, mode)
+        return descriptor_words(stack, mode)
+
+
+def _scan(words0, words1, variant: SearchVariant, backend: str, drange):
+    """The scan of a search inside ``bicos.scan``: the scan kernel
+    (``"cuda"``; the fused one for Consistency) or the plain scan
+    (``"torch"``). Returns ``(first, last)`` for NoDuplicates, ``(first0,
+    last0, rc0, rc0_last)`` for Consistency, as :func:`_finish` takes
+    them."""
+    with span("bicos.scan"):
+        if isinstance(variant, NoDuplicates):
+            if backend == "cuda":
+                return row_minima_words(words0, words1, True, drange=drange)
+            return row_minima_torch_words(words0, words1, True,
+                                          drange=drange)[1:]
+        if backend == "cuda":
+            (_, first0, last0), (_, rc0, rc0_last) = (
+                row_minima_consistency_words(words0, words1,
+                                             no_dupes=variant.no_dupes,
+                                             drange=drange))
+            return first0, last0, rc0, rc0_last
+        return row_minima_consistency_torch_words(words0, words1,
+                                                  variant.no_dupes, drange)
+
+
+def _finish(variant: SearchVariant, minima) -> torch.Tensor:
+    """The int16 disparity from :func:`_scan`'s minima."""
+    if isinstance(variant, NoDuplicates):
+        first, last = minima
+        return _finish_nodupes(first, last, first.shape[1])
+    return _finish_gathered(variant, *minima)
 
 
 def search_words(words0: torch.Tensor, words1: torch.Tensor, nbits: int,
                  variant: SearchVariant, backend: str = "auto",
                  drange=None) -> torch.Tensor:
     """Correspondence search on packed int32 words -> ``(H, W0)`` int16
-    disparity (-32768 invalid). ``nbits`` is kept for parity with the JAX
-    surface; the words carry their bits. ``drange``: optional inclusive
-    ``(dmin, dmax)`` disparity range."""
+    disparity (-32768 invalid): :func:`_scan`, then the decode. ``nbits``
+    is kept for parity with the JAX surface; the words carry their bits.
+    ``drange``: optional inclusive ``(dmin, dmax)`` disparity range."""
     backend = resolve_backend(backend, words0, words1)
-    w0 = words0.shape[1]
-    if isinstance(variant, NoDuplicates):
-        if backend == "cuda":
-            from .kernels.hamming import row_minima_words
-
-            first, last = row_minima_words(words0, words1, True,
-                                           drange=drange)
-        else:
-            with span("bicos.scan"):
-                _, first, last = row_minima_torch_words(words0, words1, True,
-                                                        drange=drange)
-        return _finish_nodupes(first, last, w0)
-    if backend == "cuda":
-        from .kernels.consistency import row_minima_consistency_words
-
-        (_, first0, last0), (_, rc0, rc0_last) = (
-            row_minima_consistency_words(words0, words1,
-                                         no_dupes=variant.no_dupes,
-                                         drange=drange))
-    else:
-        with span("bicos.scan"):
-            first0, last0, rc0, rc0_last = (
-                row_minima_consistency_torch_words(
-                    words0, words1, variant.no_dupes, drange))
-    return _finish_gathered(variant, first0, last0, rc0, rc0_last)
+    return _finish(variant, _scan(words0, words1, variant, backend, drange))
 
 
 def search(bits0: torch.Tensor, bits1: torch.Tensor, variant: SearchVariant,
@@ -366,40 +378,16 @@ def search_stack(stack0: torch.Tensor, stack1: torch.Tensor,
                  mode: TransformMode, variant: SearchVariant,
                  backend: str = "auto", drange=None) -> torch.Tensor:
     """Correspondence search straight from ``(n, H, W)`` stacks -> int16
-    disparity: the transform kernel and a scan kernel on ``"cuda"`` (the
-    NoDuplicates scan, ranged or not, or the fused Consistency scan), the
-    plain transform and scan on ``"torch"``."""
+    disparity: :func:`transform_words` on both stacks, then the search of
+    :func:`search_words`."""
     backend = resolve_backend(backend, stack0, stack1)
-    w0 = stack0.shape[2]
-    if backend != "cuda":
-        words = []
-        for stack in (stack0, stack1):
-            with span("bicos.transform"):
-                words.append(descriptor_words(stack, mode))
-        return search_words(*words, validate_stack(stack0.shape[0], mode),
-                            variant, backend, drange=drange)
-    if isinstance(variant, NoDuplicates):
-        from .kernels import hamming as kh
-
-        if drange is None:
-            _, first, last = kh.row_minima_stack(stack0, stack1, mode=mode,
-                                                 need_last=True)
-        else:
-            _, first, last = kh.row_minima_stack_range(
-                stack0, stack1, mode=mode, drange=drange)
-        return _finish_nodupes(first, last, w0)
-    from .kernels import consistency as kc
-
-    if drange is None:
-        (_, first0, last0), (_, rc0, rc0_last) = (
-            kc.row_minima_consistency_stack(stack0, stack1, mode=mode,
-                                            no_dupes=variant.no_dupes))
-    else:
-        (_, first0, last0), (_, rc0, rc0_last) = (
-            kc.row_minima_consistency_stack_range(
-                stack0, stack1, mode=mode, no_dupes=variant.no_dupes,
-                drange=drange))
-    return _finish_gathered(variant, first0, last0, rc0, rc0_last)
+    validate_stack(stack0.shape[0], mode)
+    # The words are freed when _scan returns, so the decode's temporaries
+    # do not add to them in the call's peak device memory.
+    minima = _scan(transform_words(stack0, mode, backend),
+                   transform_words(stack1, mode, backend), variant, backend,
+                   drange)
+    return _finish(variant, minima)
 
 
 def search_stack_nodupes_with_bases(stack0: torch.Tensor,
@@ -419,7 +407,5 @@ def search_stack_nodupes_with_bases(stack0: torch.Tensor,
     disp = search_stack(stack0, stack1, mode, NoDuplicates(), backend)
     w = stack0.shape[2]
     if backend == "cuda":
-        from .kernels.bases import chunk_window_bases_cuda
-
         return disp, chunk_window_bases_cuda(disp, w, wp, wcap, chunk)
     return disp, chunk_window_bases(disp, w, wp, wcap, chunk)

@@ -49,9 +49,8 @@ import torch
 
 from . import pipeline as _pipeline
 from . import search as _search
-from .config import Config, NoDuplicates
-from .descriptor import descriptor_words
-from .search import BIG, PACK_K
+from .config import BIG, PACK_K, Config, NoDuplicates
+from .kernels.band import row_minima_band, row_minima_consistency_band
 
 
 class LocalMesh:
@@ -345,10 +344,8 @@ def _ring_minima(words0, words1, need_last: bool, mesh, band: int, w: int,
     band (``words1``: the held right bands, ``band`` columns each, ``w``
     real columns in all): per held band ``(cost, first, last-or-None)``,
     ``first = -1, last = -2`` where no pair is in ``drange``."""
-    if backend == "cuda":
-        from .kernels.band import row_minima_band as fold
-    else:
-        fold = _search.row_minima_band_torch_words
+    fold = (row_minima_band if backend == "cuda"
+            else _search.row_minima_band_torch_words)
     band0 = words0[0].shape[1]
     mf = [torch.full(x.shape[:2], BIG, dtype=torch.int32, device=x.device)
           for x in words0]
@@ -370,10 +367,8 @@ def _ring_consistency(words0, words1, need_last: bool, mesh, band: int,
     forward ``(first, last-or-None)``, and the reverse ``(first1,
     last1-or-None)`` of every right column, ``(H, w)``, reduced over the
     mesh. ``first = -1, last = -2`` where no pair is in ``drange``."""
-    if backend == "cuda":
-        from .kernels.band import row_minima_consistency_band as fold
-    else:
-        fold = _search.row_minima_consistency_band_torch_words
+    fold = (row_minima_consistency_band if backend == "cuda"
+            else _search.row_minima_consistency_band_torch_words)
     band0 = words0[0].shape[1]
     h = words0[0].shape[0]
     dev = words0[0].device
@@ -443,12 +438,9 @@ def match_sharded_w(stack0, stack1, cfg: Config = Config(), *, mesh=None,
         raise ValueError(f"image width >= {PACK_K} not supported")
     s0b = _bands(stack0, 2, mesh)
     band = s0b[0].shape[2]
-    if backend == "cuda":
-        from .kernels.transform import descriptor_words_cuda as transform
-    else:
-        transform = descriptor_words
-    words0 = [transform(s, cfg.mode) for s in s0b]
-    words1 = [transform(s, cfg.mode) for s in _bands(stack1, 2, mesh)]
+    words0 = [_search.transform_words(s, cfg.mode, backend) for s in s0b]
+    words1 = [_search.transform_words(s, cfg.mode, backend)
+              for s in _bands(stack1, 2, mesh)]
     offs = [r * band for r in mesh.ranks]
     variant = cfg.variant
     drange = cfg.disparity_range

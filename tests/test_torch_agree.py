@@ -1,5 +1,5 @@
-"""NXCORR validation of the port (plain agree and the agree kernel's
-wrapper on CPU tensors) against the JAX package: disparities exactly equal
+"""NXCORR validation of the port (the plain agree, which the agree kernel
+is held to on the card) against the JAX package: disparities exactly equal
 (same NaN mask for float output), corrmap within CORR_TOL, against the XLA
 agree and the Pallas agree kernel run in interpret mode."""
 
@@ -16,7 +16,6 @@ from libbicos_tpu import search as js
 from libbicos_tpu.kernels.agree import agree_pallas
 
 from libbicos_tpu_torch import agree as ta
-from libbicos_tpu_torch.kernels.agree import agree_cuda
 
 # The JAX package's bar for its Pallas agree against its XLA path
 # (tests/test_agree_kernel.py): sums in another order or with fmas move
@@ -139,13 +138,20 @@ def test_flat_series(rng, step, minvar):
     (3, np.uint8, 0.5, None),
 ])
 def test_kernel_wrapper_matches_pallas_agree(rng, n, dtype, step, minvar):
-    """The agree kernel's wrapper (its plain versions on CPU tensors)
-    against the Pallas agree kernels in interpret mode."""
+    """The agree kernel's plain versions against the Pallas agree kernels
+    in interpret mode; the integer variant's int16 answer is read as the
+    kernel gives it, float32 with NaN where invalid."""
     s0, s1, disp = _case(rng, n, 4, 40, dtype)
     thr = 0.96 if n == 33 else 0.5
     want_o, want_c = agree_pallas(disp, s0, s1, thr, step, minvar,
                                   interpret=True)
-    got_o, got_c = agree_cuda(*_t(disp, s0, s1), thr, step, minvar)
+    if step is None:
+        got_o, got_c = ta.agree_integer(*_t(disp, s0, s1), thr, minvar)
+        got_o = torch.where(got_o == ta.INVALID_I16, float("nan"),
+                            got_o.to(torch.float32))
+    else:
+        got_o, got_c = ta.agree_subpixel(*_t(disp, s0, s1), thr, step,
+                                         minvar)
     assert got_o.dtype == torch.float32 and got_c.dtype == torch.float32
     _assert_disp_equal(got_o.numpy(), np.asarray(want_o))
     _assert_corr_close(got_c.numpy(), want_c)

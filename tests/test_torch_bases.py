@@ -1,6 +1,6 @@
 """The dynamic-window agree path of the port (``BICOS_AGREE_DYNWIN``)
-against the JAX package: the plain ``agree.chunk_window_bases`` (and the
-bases kernel's wrapper on CPU tensors) against ``_chunk_window_bases`` and
+against the JAX package: the plain ``agree.chunk_window_bases`` (which the
+bases kernel is held to on the card) against ``_chunk_window_bases`` and
 the Pallas ``_bases_kernel`` in interpret mode, exactly, on fields with both
 windowed and fallback chunks; ``resolve_chunk_wcap`` and its environment
 helper against the JAX resolution; ``search_stack_nodupes_with_bases``
@@ -27,7 +27,6 @@ from libbicos_tpu_torch import agree as ta
 from libbicos_tpu_torch import pipeline as tpipe
 from libbicos_tpu_torch import search as ts
 from libbicos_tpu_torch.kernels import agree as tka
-from libbicos_tpu_torch.kernels.bases import chunk_window_bases_cuda
 
 CORR_TOL = dict(rtol=4e-6, atol=4e-6)
 
@@ -80,9 +79,6 @@ def test_chunk_window_bases_match_jax_and_pallas(field, chunk, wcap, w):
     got = ta.chunk_window_bases(torch.from_numpy(d), w, wp, wcap, chunk)
     assert got.dtype == torch.int32 and tuple(got.shape) == (h, nc)
     np.testing.assert_array_equal(got.numpy(), want)
-    wrapped = chunk_window_bases_cuda(torch.from_numpy(d), w, wp, wcap,
-                                      chunk)
-    np.testing.assert_array_equal(wrapped.numpy(), want)
 
 
 DYNWIN = [None, 0, -1, 640, 700, 256, 1024]

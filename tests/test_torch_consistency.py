@@ -1,5 +1,5 @@
-"""The port's Consistency scan (the plain version and the consistency
-kernel's wrappers on CPU tensors) against the JAX package: forward
+"""The port's Consistency scan (the plain version, which the consistency
+kernel is held to on the card) against the JAX package: forward
 first/last argmins and the reverse argmins read at the forward argmin,
 exactly equal to the XLA two-pass scan and to the fused Pallas consistency
 kernels run in interpret mode, with the bf16 and the int8 engine. The
@@ -22,10 +22,7 @@ from libbicos_tpu.kernels.hamming import (
 
 from libbicos_tpu_torch import TransformMode as TMode
 from libbicos_tpu_torch import search as ts
-from libbicos_tpu_torch.kernels.consistency import (
-    row_minima_consistency_stack,
-    row_minima_consistency_words,
-)
+from libbicos_tpu_torch.descriptor import descriptor_words
 
 SHAPES = [  # n, mode, dtype
     (3, "LIMITED", np.uint8),    # the constant LIMITED bit
@@ -59,11 +56,17 @@ def _xla_two_pass(w0, w1, no_dupes, drange=None):
     return f0, (np.asarray(l0) if no_dupes else None), rc0, rcl
 
 
+def _cons_words(w0, w1, no_dupes):
+    """The plain Consistency scan of two int32 word tensors:
+    ``(first0, last0, rc0, rc0_last)``."""
+    return ts.row_minima_consistency_torch_words(w0, w1, no_dupes)
+
+
 def _assert_scan(got, want, no_dupes):
-    """``got``: the JAX-shaped wrapper output; ``want``: (first0, last0,
-    rc0, rc0_last) numpy. rc0/rc0_last are compared where first0 >= 0."""
-    (none0, f0, l0), (none1, rc0, rcl) = got
-    assert none0 is None and none1 is None
+    """``got``: the plain scan's ``(first0, last0, rc0, rc0_last)``;
+    ``want``: the same, numpy. rc0/rc0_last are compared where
+    first0 >= 0."""
+    f0, l0, rc0, rcl = got
     np.testing.assert_array_equal(f0.numpy(), want[0])
     has = want[0] >= 0
     np.testing.assert_array_equal(rc0.numpy()[has], np.asarray(want[2])[has])
@@ -83,8 +86,7 @@ def test_plain_scan_matches_xla_two_pass(rng, n, mode, w0w, w1w, no_dupes):
     _, _, a, _ = _words(rng, n, 3, w0w, mode)
     _, _, b, _ = _words(rng, n, 3, w1w, mode)
     want = _xla_two_pass(a, b, no_dupes)
-    got = ts.row_minima_consistency_torch_words(_i32(a), _i32(b), no_dupes)
-    _assert_scan(((None,) + got[:2], (None,) + got[2:]), want, no_dupes)
+    _assert_scan(_cons_words(_i32(a), _i32(b), no_dupes), want, no_dupes)
 
 
 @pytest.mark.parametrize("engine", ["bf16", "i8"])
@@ -98,8 +100,7 @@ def test_words_wrapper_matches_pallas_words_kernel(rng, n, mode, dtype,
     (_, f0, l0), (_, rc0, rcl) = j_cons_words(
         w0, w1, nbits=actual_bits(n, JMode[mode]), no_dupes=no_dupes,
         interpret=True, engine=engine)
-    got = row_minima_consistency_words(_i32(w0), _i32(w1),
-                                       no_dupes=no_dupes)
+    got = _cons_words(_i32(w0), _i32(w1), no_dupes)
     _assert_scan(got, tuple(None if x is None else np.asarray(x)
                             for x in (f0, l0, rc0, rcl)), no_dupes)
 
@@ -116,9 +117,9 @@ def test_stack_wrapper_matches_pallas_stack_kernel(rng, n, mode, dtype,
     (_, f0, l0), (_, rc0, rcl) = j_cons_stack(
         s0, s1, mode=JMode[mode], no_dupes=no_dupes, interpret=True,
         engine=engine)
-    got = row_minima_consistency_stack(
-        torch.from_numpy(s0), torch.from_numpy(s1), mode=TMode[mode],
-        no_dupes=no_dupes)
+    got = _cons_words(descriptor_words(torch.from_numpy(s0), TMode[mode]),
+                      descriptor_words(torch.from_numpy(s1), TMode[mode]),
+                      no_dupes)
     _assert_scan(got, tuple(None if x is None else np.asarray(x)
                             for x in (f0, l0, rc0, rcl)), no_dupes)
 
@@ -136,10 +137,10 @@ def test_reverse_ties_on_both_sides(rng, no_dupes):
     w0[:, 40:46] = w1[:, 10:16]     # exact matches of duplicated columns,
     w0[:, 90:96] = w1[:, 10:16]     # twice in the left row too
     want = _xla_two_pass(w0, w1, no_dupes)
-    got = row_minima_consistency_words(_i32(w0), _i32(w1), no_dupes=no_dupes)
+    got = _cons_words(_i32(w0), _i32(w1), no_dupes)
     _assert_scan(got, want, no_dupes)
     if no_dupes:
-        (_, f0, l0), (_, rc0, rcl) = got
+        f0, l0, rc0, rcl = got
         assert (f0[:, 40:46] != l0[:, 40:46]).all()
         assert (rc0[:, 40:46] == torch.arange(40, 46)).all()
         assert (rcl[:, 40:46] == torch.arange(90, 96)).all()

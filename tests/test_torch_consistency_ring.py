@@ -1,6 +1,6 @@
 """The fused Consistency ring step (``search.row_minima_consistency_band_
-torch_words``, the plain version beside ``csrc/band.cu``'s fused step, and
-its kernel wrapper's CPU route) against the JAX package on the same numpy
+torch_words``, the plain version that ``csrc/band.cu``'s fused step is held
+to on the card) against the JAX package on the same numpy
 inputs: one step against the Pallas band kernel ``_minima_kernel_band`` in
 interpret mode, run forward and with the roles swapped; and one ring of the
 step on a CPU ``LocalMesh`` against the JAX ring ``row_minima_wband`` run
@@ -29,7 +29,6 @@ from libbicos_tpu.kernels.hamming import row_minima_words_band
 
 from libbicos_tpu_torch import search as ts
 from libbicos_tpu_torch import sharding as tsh
-from libbicos_tpu_torch.kernels.band import row_minima_consistency_band
 
 
 @pytest.mark.parametrize("need_last", [True, False])
@@ -58,33 +57,32 @@ def test_consistency_step_matches_pallas_words_band(rng, drange, need_last):
                 cut(w1, src), cut(w0, idx), idx * band, src * band,
                 nbits=nbits, w1_total=W, need_last=need_last, interpret=True,
                 drange=ts.reflect_range(drange)), cut(bits1, src).sum(-1))
-            for fold in (ts.row_minima_consistency_band_torch_words,
-                         row_minima_consistency_band):
-                a, b = _i32(cut(w0, idx)), _i32(cut(w1, src))
-                mf = torch.full(a.shape[:2], ts.BIG, dtype=torch.int32)
-                ml = torch.full_like(mf, ts.BIG) if need_last else None
-                rf = torch.full((H_BAND, NDEV * band), ts.BIG,
-                                dtype=torch.int32)
-                rl = torch.full_like(rf, ts.BIG) if need_last else None
-                fold(a, b, idx * band, src * band, mf, ml, rf, rl,
-                     w_total=W, drange=drange)
-                cols = slice(src * band, (src + 1) * band)
-                for (cost, first, last), want, k in (
-                        (ts.decode_minima(mf, ml, W), fwd, real(idx)),
-                        (ts.decode_minima(rf[:, cols],
-                                          None if rl is None
-                                          else rl[:, cols], W), rev,
-                         real(src))):
-                    got = (cost.numpy()[:, :k], first.numpy()[:, :k],
-                           None if last is None else last.numpy()[:, :k])
-                    _assert_step_equal(got, tuple(
-                        None if x is None else x[:, :k] for x in want))
-                # Every other column of the reverse minima, and the padding
-                # of both bands, stays untouched.
-                untouched = torch.ones_like(rf, dtype=torch.bool)
-                untouched[:, src * band:src * band + real(src)] = False
-                assert bool((rf[untouched] == ts.BIG).all())
-                assert bool((mf[:, real(idx):] == ts.BIG).all())
+            fold = ts.row_minima_consistency_band_torch_words
+            a, b = _i32(cut(w0, idx)), _i32(cut(w1, src))
+            mf = torch.full(a.shape[:2], ts.BIG, dtype=torch.int32)
+            ml = torch.full_like(mf, ts.BIG) if need_last else None
+            rf = torch.full((H_BAND, NDEV * band), ts.BIG,
+                            dtype=torch.int32)
+            rl = torch.full_like(rf, ts.BIG) if need_last else None
+            fold(a, b, idx * band, src * band, mf, ml, rf, rl,
+                 w_total=W, drange=drange)
+            cols = slice(src * band, (src + 1) * band)
+            for (cost, first, last), want, k in (
+                    (ts.decode_minima(mf, ml, W), fwd, real(idx)),
+                    (ts.decode_minima(rf[:, cols],
+                                      None if rl is None
+                                      else rl[:, cols], W), rev,
+                     real(src))):
+                got = (cost.numpy()[:, :k], first.numpy()[:, :k],
+                       None if last is None else last.numpy()[:, :k])
+                _assert_step_equal(got, tuple(
+                    None if x is None else x[:, :k] for x in want))
+            # Every other column of the reverse minima, and the padding
+            # of both bands, stays untouched.
+            untouched = torch.ones_like(rf, dtype=torch.bool)
+            untouched[:, src * band:src * band + real(src)] = False
+            assert bool((rf[untouched] == ts.BIG).all())
+            assert bool((mf[:, real(idx):] == ts.BIG).all())
 
 
 WBITS = 45  # two words
@@ -137,22 +135,21 @@ def test_consistency_ring_matches_jax_both_ways(rng, ndev, drange):
             np.testing.assert_array_equal(last1.numpy(), jl1)
         else:
             assert all(l is None for _, l in fwd) and last1 is None
-    for fold in (ts.row_minima_consistency_band_torch_words,
-                 row_minima_consistency_band):
-        mf = [torch.full((3, band), ts.BIG, dtype=torch.int32)
-              for _ in range(ndev)]
-        ml = [torch.full_like(m, ts.BIG) for m in mf]
-        rf = torch.full((3, ndev * band), ts.BIG, dtype=torch.int32)
-        rl = torch.full_like(rf, ts.BIG)
-        for i in range(ndev):
-            for j in range(ndev):
-                src = (j + i) % ndev
-                fold(a[j], b[src], j * band, src * band, mf[j], ml[j], rf, rl,
-                     w_total=w, drange=drange)
-        fl = [ts.decode_minima(f, l, w)[1:] for f, l in zip(mf, ml)]
-        for k, want in ((0, jf), (1, jl)):
-            np.testing.assert_array_equal(
-                torch.cat([x[k] for x in fl], 1)[:, :w].numpy(), want)
-        _, f1, l1 = ts.decode_minima(rf, rl, w)
-        np.testing.assert_array_equal(f1[:, :w].numpy(), jf1)
-        np.testing.assert_array_equal(l1[:, :w].numpy(), jl1)
+    fold = ts.row_minima_consistency_band_torch_words
+    mf = [torch.full((3, band), ts.BIG, dtype=torch.int32)
+          for _ in range(ndev)]
+    ml = [torch.full_like(m, ts.BIG) for m in mf]
+    rf = torch.full((3, ndev * band), ts.BIG, dtype=torch.int32)
+    rl = torch.full_like(rf, ts.BIG)
+    for i in range(ndev):
+        for j in range(ndev):
+            src = (j + i) % ndev
+            fold(a[j], b[src], j * band, src * band, mf[j], ml[j], rf, rl,
+                 w_total=w, drange=drange)
+    fl = [ts.decode_minima(f, l, w)[1:] for f, l in zip(mf, ml)]
+    for k, want in ((0, jf), (1, jl)):
+        np.testing.assert_array_equal(
+            torch.cat([x[k] for x in fl], 1)[:, :w].numpy(), want)
+    _, f1, l1 = ts.decode_minima(rf, rl, w)
+    np.testing.assert_array_equal(f1[:, :w].numpy(), jf1)
+    np.testing.assert_array_equal(l1[:, :w].numpy(), jl1)

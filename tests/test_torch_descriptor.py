@@ -1,5 +1,5 @@
-"""Descriptor transform of the port (plain version and the transform
-kernel's wrapper on CPU tensors) against the JAX package: descriptor words
+"""Descriptor transform of the port (the plain version, which the transform
+kernel is held to on the card) against the JAX package: descriptor words
 bit-identical to ``descriptor_words`` (XLA) and to the Pallas transform
 kernel run in interpret mode."""
 
@@ -16,7 +16,6 @@ from libbicos_tpu.kernels.transform import descriptor_words_pallas
 
 from libbicos_tpu_torch import TransformMode as TMode
 from libbicos_tpu_torch import descriptor as td
-from libbicos_tpu_torch.kernels.transform import descriptor_words_cuda
 
 CASES = [(n, mode) for n in (2, 3, 4, 9, 33) for mode in ("LIMITED", "FULL")
          if not (mode == "FULL" and n > 17)] + [(17, "FULL")]
@@ -43,12 +42,12 @@ def test_words_match_xla(rng, n, mode, dtype):
     (17, "FULL", np.uint8),
 ])
 def test_kernel_wrapper_matches_pallas_transform(rng, n, mode, dtype):
-    """The transform kernel's wrapper (its plain version on a CPU tensor)
-    against the Pallas transform kernel in interpret mode."""
+    """The transform kernel's plain version against the Pallas transform
+    kernel in interpret mode."""
     s0, _, _ = make_stack_pair(rng, n, 6, 45, dtype)
     want = np.asarray(descriptor_words_pallas(s0, JMode[mode],
                                               interpret=True))
-    got = descriptor_words_cuda(torch.from_numpy(s0), TMode[mode])
+    got = td.descriptor_words(torch.from_numpy(s0), TMode[mode])
     np.testing.assert_array_equal(_u32(got), want)
 
 

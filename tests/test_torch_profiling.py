@@ -156,23 +156,20 @@ def test_match_batched_has_one_outermost_match_span(tmp_path, folded):
 
 @pytest.mark.parametrize("variant", ["nodupes", "consistency"])
 def test_kernel_wrappers_span_on_the_cpu(tmp_path, variant):
-    """The kernel wrappers carry their spans on their CPU fallbacks too:
-    two transforms and the scan."""
-    from libbicos_tpu_torch.kernels import consistency as kc
-    from libbicos_tpu_torch.kernels import hamming as kh
-
+    """The stage dispatch (``search.transform_words``, ``search._scan``)
+    owns the spans, which both backends share: ``search_stack`` on the
+    plain versions gives two transforms, the scan and its finish."""
     s0, s1, _ = synthetic_stack_pair(9, 6, 40, seed=5)
     s0, s1 = torch.from_numpy(s0), torch.from_numpy(s1)
-    mode = tb.TransformMode.LIMITED
+    variants = {"nodupes": tb.NoDuplicates(),
+                "consistency": tb.Consistency(1, True)}
     with tp.trace(tmp_path):
-        if variant == "nodupes":
-            kh.row_minima_stack(s0, s1, mode=mode, need_last=True)
-        else:
-            kc.row_minima_consistency_stack(s0, s1, mode=mode,
-                                            no_dupes=True)
+        tb.search.search_stack(s0, s1, tb.TransformMode.LIMITED,
+                               variants[variant], backend="torch")
     assert _span_tree(tmp_path) == [(0, "bicos.transform"),
                                     (0, "bicos.transform"),
-                                    (0, "bicos.scan")]
+                                    (0, "bicos.scan"),
+                                    (0, "bicos.search_finish")]
 
 
 def test_no_record_function_without_a_profiler(monkeypatch):

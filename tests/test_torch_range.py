@@ -1,9 +1,9 @@
-"""``disparity_range`` in the port's scans (the plain ranged scan and the
-scan and consistency kernels' ranged wrappers on CPU tensors) against the
-JAX package: cost, first/last argmins with the no-candidate sentinels
-``-1 / -2`` and the reverse argmins where the forward side has a
-candidate, exactly equal to the masked XLA scan and to the ranged Pallas
-kernels run in interpret mode. The search surfaces and ``match`` are in
+"""``disparity_range`` in the port's plain scans (the versions the scan
+and consistency kernels are held to on the card) against the JAX package:
+cost, first/last argmins with the no-candidate sentinels ``-1 / -2`` and
+the reverse argmins where the forward side has a candidate, exactly equal
+to the masked XLA scan and to the ranged Pallas kernels run in interpret
+mode. The search surfaces and ``match`` are in
 ``test_torch_variants_*.py``."""
 
 import numpy as np
@@ -22,14 +22,7 @@ from libbicos_tpu.kernels.hamming import (
 
 from libbicos_tpu_torch import TransformMode as TMode
 from libbicos_tpu_torch import search as ts
-from libbicos_tpu_torch.kernels.consistency import (
-    row_minima_consistency_stack_range,
-    row_minima_consistency_words,
-)
-from libbicos_tpu_torch.kernels.hamming import (
-    row_minima_stack_range,
-    row_minima_words,
-)
+from libbicos_tpu_torch.descriptor import descriptor_words
 
 # (0, 31), (-5, 20), (10, 40) from the JAX range tests; one range wholly
 # outside a 48..150-wide row (no pixel has a candidate); one negative.
@@ -44,6 +37,12 @@ def _words(rng, n, h, w, mode="LIMITED", dtype=np.uint8):
     s0, s1, _ = make_stack_pair(rng, n, h, w, dtype)
     return (np.asarray(jd.descriptor_words(s0, JMode[mode])),
             np.asarray(jd.descriptor_words(s1, JMode[mode])))
+
+
+def _stack_words(s0, s1, mode):
+    """The plain transform of two numpy stacks."""
+    return (descriptor_words(torch.from_numpy(s0), TMode[mode]),
+            descriptor_words(torch.from_numpy(s1), TMode[mode]))
 
 
 @pytest.mark.parametrize("need_last", [True, False])
@@ -61,8 +60,6 @@ def test_plain_ranged_scan_matches_xla(rng, drange, budget, need_last):
         np.testing.assert_array_equal(gl.numpy(), np.asarray(last))
     else:
         assert gl is None
-    f2, l2 = row_minima_words(_i32(w0), _i32(w1), need_last, drange=drange)
-    assert torch.equal(f2, gf)
     if drange == (400, 500):
         assert (gf == -1).all() and (not need_last or (gl == -2).all())
 
@@ -73,7 +70,8 @@ def test_ranged_scan_unequal_widths(rng, w0w, w1w):
     b, _ = _words(rng, 5, 3, w1w)
     for drange in ((-20, 20), (30, 80)):
         _, first, last = js.row_minima_xla_words(a, b, True, drange=drange)
-        gf, gl = row_minima_words(_i32(a), _i32(b), True, drange=drange)
+        _, gf, gl = ts.row_minima_torch_words(_i32(a), _i32(b), True,
+                                              drange=drange)
         np.testing.assert_array_equal(gf.numpy(), np.asarray(first))
         np.testing.assert_array_equal(gl.numpy(), np.asarray(last))
 
@@ -88,9 +86,9 @@ def test_stack_range_matches_pallas(rng, n, mode, dtype, drange):
     s0, s1, _ = make_stack_pair(rng, n, 3, 150, dtype)
     none, want_f, want_l = j_stack_range(s0, s1, mode=JMode[mode],
                                          drange=drange, interpret=True)
-    got = row_minima_stack_range(torch.from_numpy(s0), torch.from_numpy(s1),
-                                 mode=TMode[mode], drange=drange)
-    assert none is None and got[0] is None
+    got = ts.row_minima_torch_words(*_stack_words(s0, s1, mode), True,
+                                    drange=drange)
+    assert none is None
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want_l))
 
@@ -109,9 +107,8 @@ def test_consistency_stack_range_matches_pallas(rng, n, mode, dtype, drange,
     (_, f0, l0), (_, rc0, rcl) = j_cons_stack_range(
         s0, s1, mode=JMode[mode], no_dupes=no_dupes, drange=drange,
         interpret=True)
-    (_, gf, gl), (_, grc, grl) = row_minima_consistency_stack_range(
-        torch.from_numpy(s0), torch.from_numpy(s1), mode=TMode[mode],
-        no_dupes=no_dupes, drange=drange)
+    gf, gl, grc, grl = ts.row_minima_consistency_torch_words(
+        *_stack_words(s0, s1, mode), no_dupes, drange)
     f0 = np.asarray(f0)
     has = f0 >= 0
     np.testing.assert_array_equal(gf.numpy(), f0)
@@ -134,8 +131,8 @@ def test_consistency_words_range_matches_xla_two_pass(rng, drange):
     _, f0, l0 = js.row_minima_xla_words(a, b, True, drange=drange)
     _, f1, l1 = js.row_minima_xla_words(b, a, True,
                                         drange=(-drange[1], -drange[0]))
-    (_, gf, gl), (_, grc, grl) = row_minima_consistency_words(
-        _i32(a), _i32(b), no_dupes=True, drange=drange)
+    gf, gl, grc, grl = ts.row_minima_consistency_torch_words(
+        _i32(a), _i32(b), True, drange)
     f0 = np.asarray(f0)
     has = f0 >= 0
     idx = np.maximum(f0, 0)

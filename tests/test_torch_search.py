@@ -1,8 +1,9 @@
-"""Hamming row scan and NoDuplicates search of the port (plain scan and the
-scan kernel's wrappers on CPU tensors) against the JAX package: first/last
-argmin and int16 disparities exactly equal to the XLA scan and to the
-Pallas scan kernels run in interpret mode, with the bf16 and the int8
-engine; plus one 40000-wide Consistency search."""
+"""Hamming row scan and NoDuplicates search of the port (the plain scan,
+the version the scan kernel is held to on the card) against the JAX
+package: first/last argmin and int16 disparities exactly equal to the XLA
+scan and to the Pallas scan kernels run in interpret mode, with the bf16
+and the int8 engine; plus one 40000-wide Consistency search, and the kernel
+wrappers' refusal of CPU tensors."""
 
 import numpy as np
 import pytest
@@ -24,10 +25,7 @@ from libbicos_tpu.kernels.hamming import (
 from libbicos_tpu_torch import Consistency, NoDuplicates
 from libbicos_tpu_torch import TransformMode as TMode
 from libbicos_tpu_torch import search as ts
-from libbicos_tpu_torch.kernels.hamming import (
-    row_minima_stack,
-    row_minima_words,
-)
+from libbicos_tpu_torch.descriptor import descriptor_words
 
 
 def _i32(words) -> torch.Tensor:
@@ -39,6 +37,14 @@ def _words(rng, n, h, w, mode="LIMITED", dtype=np.uint8):
     w0 = np.asarray(jd.descriptor_words(s0, JMode[mode]))
     w1 = np.asarray(jd.descriptor_words(s1, JMode[mode]))
     return s0, s1, w0, w1
+
+
+def _stack_minima(s0, s1, mode):
+    """The plain transform and scan from numpy stacks: ``(cost, first,
+    last)``."""
+    return ts.row_minima_torch_words(
+        descriptor_words(torch.from_numpy(s0), TMode[mode]),
+        descriptor_words(torch.from_numpy(s1), TMode[mode]), True)
 
 
 @pytest.mark.parametrize("need_last", [True, False])
@@ -72,10 +78,10 @@ def test_words_wrapper_matches_pallas_words_kernel(rng, n, mode, dtype):
     _, want_f, want_l = row_minima_pallas_words(
         w0, w1, nbits=actual_bits(n, JMode[mode]), need_last=True,
         interpret=True)
-    f, last = row_minima_words(_i32(w0), _i32(w1), True)
+    _, f, last = ts.row_minima_torch_words(_i32(w0), _i32(w1), True)
     np.testing.assert_array_equal(f.numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(last.numpy(), np.asarray(want_l))
-    f2, none = row_minima_words(_i32(w0), _i32(w1), False)
+    _, f2, none = ts.row_minima_torch_words(_i32(w0), _i32(w1), False)
     assert none is None and torch.equal(f2, f)
 
 
@@ -89,9 +95,8 @@ def test_stack_wrapper_matches_pallas_stack_kernel(rng, n, mode, dtype):
     s0, s1, _ = make_stack_pair(rng, n, 3, 140, dtype)
     none, want_f, want_l = j_row_minima_stack(
         s0, s1, mode=JMode[mode], need_last=True, interpret=True)
-    got = row_minima_stack(torch.from_numpy(s0), torch.from_numpy(s1),
-                           mode=TMode[mode], need_last=True)
-    assert none is None and got[0] is None
+    got = _stack_minima(s0, s1, mode)
+    assert none is None
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want_l))
 
@@ -181,7 +186,7 @@ def test_words_wrapper_matches_i8_engine_kernel(rng, n, mode, dtype):
     _, want_f, want_l = row_minima_pallas_words(
         w0, w1, nbits=actual_bits(n, JMode[mode]), need_last=True,
         interpret=True, engine="i8")
-    f, last = row_minima_words(_i32(w0), _i32(w1), True)
+    _, f, last = ts.row_minima_torch_words(_i32(w0), _i32(w1), True)
     np.testing.assert_array_equal(f.numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(last.numpy(), np.asarray(want_l))
 
@@ -197,8 +202,7 @@ def test_stack_wrapper_matches_i8_engine_kernel(rng, n, mode, dtype):
     _, want_f, want_l = j_row_minima_stack(
         s0, s1, mode=JMode[mode], need_last=True, interpret=True,
         engine="i8")
-    got = row_minima_stack(torch.from_numpy(s0), torch.from_numpy(s1),
-                           mode=TMode[mode], need_last=True)
+    got = _stack_minima(s0, s1, mode)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want_f))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want_l))
 
@@ -216,3 +220,47 @@ def test_ultrawide_consistency_matches_xla(rng):
     got = ts.search_words(_i32(w0), _i32(w1), 32, Consistency(1, True))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != -32768).any() and (want == -32768).any()
+
+
+def _refusal_cases():
+    """Each kernel wrapper with CPU arguments of a shape it would take."""
+    from libbicos_tpu_torch.kernels import agree, band, bases, consistency
+    from libbicos_tpu_torch.kernels import hamming, transform
+
+    stack = torch.zeros((5, 2, 16), dtype=torch.uint8)
+    words = torch.zeros((2, 16, 1), dtype=torch.int32)
+    acc = torch.zeros((2, 16), dtype=torch.int32)
+    disp = torch.zeros((2, 16), dtype=torch.int16)
+    return {
+        "descriptor_words_cuda": lambda: transform.descriptor_words_cuda(
+            stack, TMode.LIMITED),
+        "row_minima_words": lambda: hamming.row_minima_words(
+            words, words, True),
+        "row_minima_consistency_words":
+            lambda: consistency.row_minima_consistency_words(
+                words, words, no_dupes=True),
+        "agree_cuda": lambda: agree.agree_cuda(disp, stack, stack, 0.5, 0.1,
+                                               None),
+        "row_minima_band": lambda: band.row_minima_band(
+            words, words, 0, 0, acc, acc.clone(), w1_total=16),
+        "row_minima_consistency_band":
+            lambda: band.row_minima_consistency_band(
+                words, words, 0, 0, acc, acc.clone(), acc.clone(),
+                acc.clone(), w_total=16),
+        "chunk_window_bases_cuda": lambda: bases.chunk_window_bases_cuda(
+            disp, 16, 256, 640, 256),
+    }
+
+
+@pytest.mark.parametrize("wrapper", sorted(_refusal_cases()))
+def test_kernel_wrappers_refuse_cpu_tensors(monkeypatch, wrapper):
+    """A kernel wrapper only launches: given CPU tensors it raises before
+    the kernel library is built, and never runs the plain version."""
+    from libbicos_tpu_torch.kernels import _build
+
+    def no_library():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        _refusal_cases()[wrapper]()
