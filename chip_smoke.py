@@ -41,7 +41,9 @@
    disparity). Before them the FULL transform of N's stacks is compared
    with its plain version, and at the end timed beside the LIMITED one.
    Each call's launch counts are set to 0 just before it and read just
-   after, and must equal the kernels of its path; two runs must agree; the
+   after, and must equal the kernels of its path (``agree_packed``, the
+   agree launches that took the packed sweep: every subpixel call, not
+   N's integer agree); two runs must agree; the
    valid share must be above 0. The call's scan kernel and the agree
    kernel (N: the integer agree) are compared with their plain versions
    at the shapes the call gives them, and the call and its kernels are
@@ -387,6 +389,66 @@ SASS_OPS = ("I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F", "FMUL", "FADD",
             "FFMA", "DMUL", "DADD", "DFMA", "LOP3", "IADD3", "LDS", "MUFU")
 
 
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@(!?)(U?P\w+)\s+)?"
+                        r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);")
+# The packed agree instance of the LIMITED cells (u8, n=33, SINGLE) and
+# the bucket below its own.
+HEADLINE_AGREE, HEADLINE_BELOW = "agree_kernel<float,u8,33>", 16
+
+
+def sass_instruction(line: str):
+    """One ``cuobjdump -sass`` instruction line as ``{"addr", "neg",
+    "pred", "op", "mods", "args", "tgt"}`` (``tgt``: a branch's target
+    address), or None."""
+    m = _SASS_LINE.search(line)
+    if not m:
+        return None
+    tgt = re.search(r"0x([0-9a-f]+)", m[6]) if m[4] == "BRA" else None
+    return {"addr": int(m[1], 16), "neg": m[2] == "!", "pred": m[3],
+            "op": m[4], "mods": m[5], "args": m[6],
+            "tgt": int(tgt[1], 16) if tgt else None}
+
+
+def packed_issue(ins: list, n: int, below: int) -> dict:
+    """Instructions issued once through the x-tile loop of a packed agree
+    instance (the smallest loop that holds its DP4As) for ``n`` shots of its
+    bucket (``below`` < n): each guard ``ISETP`` of a register against an
+    immediate in (below, n + 4] is taken as a comparison with n, every
+    other predicate as false (the fast paths of the divisions and square
+    roots). ``samples`` (a tile's n x K) is the mean pass's FMULs over 3;
+    the mean pass runs to the tile's first MUFU (its divisions), the
+    covariance pass from the next LDS to the MUFU after it."""
+    idp = [k for k, x in enumerate(ins) if x["op"] == "IDP"]
+    index = {x["addr"]: k for k, x in enumerate(ins)}
+    j, k_end = min(((index[x["tgt"]], k) for k, x in enumerate(ins)
+                    if x["tgt"] in index and index[x["tgt"]] <= idp[0]
+                    and k >= idp[-1]), key=lambda span: span[1] - span[0])
+    cmp = {"GE": int.__ge__, "GT": int.__gt__, "LT": int.__lt__,
+           "LE": int.__le__, "EQ": int.__eq__, "NE": int.__ne__}
+    preds, seq = {}, []
+    while j != k_end and len(seq) < 100000:
+        x = ins[j]
+        seq.append(x)
+        args = [a.strip() for a in x["args"].split(",")]
+        m = re.fullmatch(r"\.(GE|GT|LT|LE|EQ|NE)\.AND", x["mods"])
+        if x["op"] == "ISETP" and m and len(args) == 5 and \
+                args[3].startswith("0x") and \
+                below < int(args[3], 16) <= n + 4:
+            preds[args[0]] = cmp[m[1]](n, int(args[3], 16))
+        elif re.fullmatch(r"P\d", args[0]):
+            preds[args[0]] = False
+        taken = x["op"] == "BRA" and (
+            not x["pred"] or preds.get(x["pred"], False) != x["neg"])
+        j = index[x["tgt"]] if taken else j + 1
+    mufu = [k for k, x in enumerate(seq) if x["op"] == "MUFU"]
+    cov0 = next(k for k, x in enumerate(seq)
+                if k > mufu[0] and x["op"] == "LDS")
+    cov1 = next(k for k in mufu if k > cov0)
+    samples = sum(x["op"] == "FMUL" for x in seq[:mufu[0]]) // 3
+    return {"n": n, "samples": samples, "tile": len(seq),
+            "mean_pass": mufu[0], "covariance_pass": cov1 - cov0}
+
+
 def sass_report(lib: Path) -> dict:
     """Opcode counts (``SASS_OPS``) of the agree and transform kernels in
     the built library, from ``cuobjdump -sass``: over the whole kernel, and
@@ -394,7 +456,9 @@ def sass_report(lib: Path) -> dict:
     FMULs (the sweep's two shot loops of an x tile, and the x loop around
     them) or, in the transform, at least 16 instructions; ``last_loop``,
     the instructions of the loop that the kernel's last backward branch
-    closes (in a FULL transform, the loop over a thread's pixels).
+    closes (in a FULL transform, the loop over a thread's pixels); and for
+    the LIMITED cells' packed agree instance (``HEADLINE_AGREE``), the
+    instructions issued a tile at n = 33 (:func:`packed_issue`).
     ``{}`` where the toolkit has no cuobjdump."""
     import shutil
 
@@ -403,7 +467,7 @@ def sass_report(lib: Path) -> dict:
         return {}
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300).stdout
-    funcs, cur = {}, None
+    funcs, full, cur = {}, {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -411,11 +475,10 @@ def sass_report(lib: Path) -> dict:
             cur = (funcs.setdefault(name, [])
                    if name.startswith(("agree", "transform")) else None)
             continue
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                      r"([A-Z][A-Z0-9_]*)(?:\.\S+)?\s*([^;]*);", line)
-        if cur is not None and m:
-            tgt = re.search(r"0x([0-9a-f]+)", m[3]) if m[2] == "BRA" else None
-            cur.append((int(m[1], 16), m[2], int(tgt[1], 16) if tgt else None))
+        x = sass_instruction(line)
+        if cur is not None and x:
+            cur.append((x["addr"], x["op"], x["tgt"]))
+            full.setdefault(name, []).append(x)
 
     def counts(ins):
         return {op: sum(1 for _, o, _ in ins if o == op) for op in SASS_OPS}
@@ -435,6 +498,9 @@ def sass_report(lib: Path) -> dict:
                               "instructions": len(body), **c})
         report[name] = {"instructions": len(ins), **counts(ins),
                         "loops": loops, "last_loop": last_loop}
+        if name == HEADLINE_AGREE:
+            report[name]["issued"] = packed_issue(full[name], 33,
+                                                  HEADLINE_BELOW)
     return report
 
 
@@ -495,6 +561,14 @@ def build_report(lib: Path) -> dict:
             print(f"    loop {loop['span']}: " + " ".join(
                 f"{op} {loop[op]}" for op in ("instructions",) + SASS_OPS),
                   flush=True)
+        if "issued" in v:
+            t = v["issued"]
+            both = t["mean_pass"] + t["covariance_pass"]
+            print(f"    issued a tile at n={t['n']}: {t['tile']} for "
+                  f"{t['samples']} samples, {t['tile'] / t['samples']:.2f} "
+                  f"a sample; both passes {both / t['samples']:.2f} (mean "
+                  f"{t['mean_pass'] / t['samples']:.2f}, covariance "
+                  f"{t['covariance_pass'] / t['samples']:.2f})", flush=True)
     if per_pixel:
         print("  sass: transform_kernel<T,n> instructions a pixel: "
               + " ".join(f"{k[len('transform_kernel'):]} {v}"
@@ -1431,8 +1505,9 @@ def serve_phase(torch, s0n, s1n, cfgs, want, card) -> dict:
         return ", ".join(f"{k} {timing[k]:.3f}" for k in SERVE_PHASES)
 
     out = {}
-    path = {k: 0 for k in KERNELS}
-    nodup = {**path, "transform": 2, "hamming": 1, "agree": 1}
+    path = dict.fromkeys(_build.LAUNCHES, 0)
+    nodup = {**path, "transform": 2, "hamming": 1, "agree": 1,
+             "agree_packed": 1}
     engine = Engine(cfgs["A"], device=dev)
     t0 = time.perf_counter()
     client = start(engine, [(s0n.shape, "uint8")])
@@ -1491,7 +1566,8 @@ def serve_phase(torch, s0n, s1n, cfgs, want, card) -> dict:
                 "equals": "match_batched_folded"}
 
     # Consistency and the range, from the same daemon.
-    cons = {**path, "transform": 2, "consistency": 1, "agree": 1}
+    cons = {**path, "transform": 2, "consistency": 1, "agree": 1,
+            "agree_packed": 1}
     for label, params, ref, expect in (
             ("B", {"lr_maxdiff": 1, "no_dupes": 1}, "B", cons),
             ("C", {"disp_range": f"{DRANGE[0]}:{DRANGE[1]}"}, "C", nodup)):
@@ -1514,7 +1590,7 @@ def serve_phase(torch, s0n, s1n, cfgs, want, card) -> dict:
     got = mclient.match(s0n, s1n, corrmap=True)
     launches = _build.launch_counts()
     want_l = {**path, "transform": 2 * NBANDS, "hamming": NBANDS,
-              "agree": NBANDS}
+              "agree": NBANDS, "agree_packed": NBANDS}
     if launches != want_l:
         fail(f"phase 6: the 4-band engine launched {launches}")
     held("4-band engine", got, want["H"])
@@ -1633,9 +1709,13 @@ def main() -> None:
                           descriptor_words_cuda(k1, full_mode))}
     mv = MIN_VARIANCE * n
     nx = len(ta.subpixel_xgrid(STEP))
-    path = {k: 0 for k in KERNELS}
-    nodup_path = {**path, "transform": 2, "hamming": 1, "agree": 1}
-    cons_path = {**path, "transform": 2, "consistency": 1, "agree": 1}
+    # Launches per call; "agree_packed": the agree launches that took the
+    # packed sweep (every subpixel call here, not N's integer agree).
+    path = dict.fromkeys(_build.LAUNCHES, 0)
+    nodup_path = {**path, "transform": 2, "hamming": 1, "agree": 1,
+                  "agree_packed": 1}
+    cons_path = {**path, "transform": 2, "consistency": 1, "agree": 1,
+                 "agree_packed": 1}
 
     def headline(variant, drange):
         return bicos.Config(nxcorr_threshold=THRESHOLD, subpixel_step=STEP,
@@ -1650,7 +1730,7 @@ def main() -> None:
         # full16's configuration (portbench/configs/full16.json): the
         # 8-word scan and the integer agree.
         "N": (bicos.Config(nxcorr_threshold=0.9, mode=full_mode),
-              nodup_path),
+              {**nodup_path, "agree_packed": 0}),
     }
     results, scans, single, search_disp, cfgs = {}, {}, {}, {}, {}
     for label, (cfg, expect) in calls.items():
@@ -1819,7 +1899,8 @@ def main() -> None:
     )
 
     mesh = sharding.make_mesh(NBANDS, virtual=True, device=dev)
-    wpath = {**path, "transform": 2 * NBANDS, "agree": NBANDS}
+    wpath = {**path, "transform": 2 * NBANDS, "agree": NBANDS,
+             "agree_packed": NBANDS}
     sharded = {  # label: (single-card call, entry point, launches)
         "E": ("A", sharding.match_sharded_w, {**wpath, "band": 16}),
         "F": ("B", sharding.match_sharded_w,

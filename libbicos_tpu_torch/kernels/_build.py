@@ -35,8 +35,10 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# "agree_packed" counts the agree launches that took the packed sweep
+# (kernels/agree.py::packed_bucket), beside their count in "agree".
 LAUNCHES = {"transform": 0, "hamming": 0, "consistency": 0, "agree": 0,
-            "band": 0, "band_consistency": 0, "bases": 0}
+            "agree_packed": 0, "band": 0, "band_consistency": 0, "bases": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,9 +58,10 @@ _SIGNATURES = {
     "bicos_consistency": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _P),
     # disp, s0, s1, xs, nx, out, corr, n, h, w, w1, col_offset, u16,
-    # threshold, minvar, has_minvar, f64, bases, nc, chunk, wcap, stream
+    # threshold, minvar, has_minvar, f64, packed, bases, nc, chunk, wcap,
+    # stream
     "bicos_agree": (_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                    _D, _D, _I, _I, _P, _I, _I, _I, _P),
+                    _D, _D, _I, _I, _I, _P, _I, _I, _I, _P),
     # (the device only): the opt-in shared memory per block, or -error
     "bicos_smem_optin": (_I,),
     # disp, out, h, wd, w, wp, wcap, chunk, stream

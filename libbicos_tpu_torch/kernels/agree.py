@@ -12,7 +12,11 @@ and reads the right series from global memory or, with per (row, chunk)
 them staged in shared memory; both variants run the same arithmetic, so
 their results are equal bit for bit. Each thread caches its pixel's
 per-shot terms in shared memory (``csrc/agree.cu``); the windowed block
-puts them beside its window.
+puts them beside its window. The subpixel sweep computes each
+interpolated sample once and keeps it packed in registers for the
+covariance pass, in an instance per shot bucket (:func:`packed_bucket`);
+the integer variant and the shapes past the buckets take the recomputing
+sweep.
 """
 
 from __future__ import annotations
@@ -27,6 +31,11 @@ from ..config import Precision
 from . import _build
 
 MAX_SHOTS = 65  # the LIMITED maximum (4n-7 <= 256)
+# The packed sweep's shot buckets by sample type, as agree.cu instantiates
+# them: a bucket's instance takes n from the bucket before it (exclusive)
+# to its own (inclusive). DOUBLE has the u8 bucket 33 alone.
+PACKED_BUCKETS = {torch.uint8: (16, 33, 65), torch.uint16: (16, 33)}
+DOUBLE_BUCKETS = {torch.uint8: (33,), torch.uint16: ()}
 DEFAULT_WINDOW = 640  # columns, for BICOS_AGREE_DYNWIN < 0
 DEFAULT_CHUNK = 256  # left columns per window
 
@@ -57,6 +66,22 @@ def agree_window(w: int) -> Tuple[int, int]:
     dynwin = 0 if dw == "auto" else int(dw)
     return resolve_chunk_wcap(w, dynwin,
                               int(os.environ.get("BICOS_AGREE_CHUNK", "0")))
+
+
+def packed_bucket(n: int, dtype: torch.dtype, precision: Precision,
+                  step: Optional[float]) -> int:
+    """The shot bucket of ``agree.cu``'s packed sweep for ``n`` shots of
+    ``dtype`` (the smallest in :data:`PACKED_BUCKETS` that holds ``n``), or
+    0 for the recomputing sweep: with no ``step`` (the integer variant
+    stores no samples), past the buckets (u16 above 33 shots, whose samples
+    would not fit the registers), and in DOUBLE but in
+    :data:`DOUBLE_BUCKETS` (the other instances spilled registers)."""
+    if step is None:
+        return 0
+    bucket = next((b for b in PACKED_BUCKETS[dtype] if n <= b), 0)
+    if precision == Precision.DOUBLE and bucket not in DOUBLE_BUCKETS[dtype]:
+        return 0
+    return bucket
 
 
 def agree_cuda(disp: torch.Tensor, stack0: torch.Tensor,
@@ -117,6 +142,7 @@ def agree_cuda(disp: torch.Tensor, stack0: torch.Tensor,
             raise RuntimeError(
                 f"the agree window needs {need} bytes of shared memory "
                 f"(n={n}, wcap={wcap}); the device allows {limit}")
+    packed = packed_bucket(n, stack0.dtype, precision, step)
     xs = torch.tensor(subpixel_xgrid(step) if step is not None else [],
                       dtype=torch.float32, device=dev)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
@@ -129,9 +155,11 @@ def agree_cuda(disp: torch.Tensor, stack0: torch.Tensor,
         out.data_ptr(), corr.data_ptr(), n, h, w, w1, int(col_offset),
         int(u16), float(threshold),
         0.0 if minvar is None else float(minvar), int(minvar is not None),
-        int(precision == Precision.DOUBLE),
+        int(precision == Precision.DOUBLE), packed,
         None if bases is None else bases.data_ptr(), nc, int(chunk),
         int(wcap), _build.stream_of(disp))
     _build.check(rc, "agree")
     _build.count_launch("agree")
+    if packed:
+        _build.count_launch("agree_packed")
     return out, corr

@@ -3,6 +3,8 @@ is held to on the card) against the JAX package: disparities exactly equal
 (same NaN mask for float output), corrmap within CORR_TOL, against the XLA
 agree and the Pallas agree kernel run in interpret mode."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -260,3 +262,152 @@ def test_int_to_float_identities_and_integer_sums():
     serial = np.add.accumulate(s.astype(np.float32), axis=1)[:, -1]
     np.testing.assert_array_equal(serial, s.sum(axis=1).astype(np.float32))
     np.testing.assert_array_equal(_from_int_f32(s.sum(axis=1)), serial)
+
+
+# ---------------------------------------------------------------------------
+# agree.cu's packed sweep: the host-side rule that picks its shot bucket
+# (kernels/agree.py::packed_bucket, mirrored by the instances agree.cu
+# builds) and the byte permutations that pack a sample's bits and move
+# them back under the exponent of 2^23 (or into the low word of a double).
+
+from pathlib import Path  # noqa: E402
+
+from libbicos_tpu_torch import Precision  # noqa: E402
+from libbicos_tpu_torch.kernels.agree import (  # noqa: E402
+    DOUBLE_BUCKETS,
+    PACKED_BUCKETS,
+    packed_bucket,
+)
+
+AGREE_CU = (Path(__file__).resolve().parent.parent / "libbicos_tpu_torch"
+            / "csrc" / "agree.cu").read_text()
+
+
+@pytest.mark.parametrize("precision", [Precision.SINGLE, Precision.DOUBLE])
+@pytest.mark.parametrize("step", [0.1, 0.05, 0.3, None])
+@pytest.mark.parametrize("dtype, n, want", [
+    (torch.uint8, 2, 16), (torch.uint8, 3, 16), (torch.uint8, 8, 16),
+    (torch.uint8, 9, 16), (torch.uint8, 16, 16), (torch.uint8, 17, 33),
+    (torch.uint8, 33, 33), (torch.uint8, 34, 65), (torch.uint8, 65, 65),
+    (torch.uint16, 2, 16), (torch.uint16, 16, 16), (torch.uint16, 17, 33),
+    (torch.uint16, 33, 33), (torch.uint16, 34, 0), (torch.uint16, 65, 0),
+])
+def test_packed_bucket_rule(dtype, n, want, step, precision):
+    """The smallest bucket that holds n; the recomputing sweep (0) with no
+    step (the integer variant), for u16 past 33 shots, and in DOUBLE but
+    for u8 at 17 to 33 shots."""
+    if step is None or (precision == Precision.DOUBLE
+                        and (dtype, want) != (torch.uint8, 33)):
+        want = 0
+    assert packed_bucket(n, dtype, precision, step) == want
+
+
+def test_packed_buckets_match_agree_cu():
+    """The buckets the host rule picks are the instances agree.cu's
+    launch_bucket dispatches (u16 without 65), and each bucket's lower edge
+    (bucket_below) is the bucket before it."""
+    body = AGREE_CU[AGREE_CU.index("int launch_bucket("):]
+    body = body[:body.index("\n}\n")]
+    cases = dict(re.findall(r"case (\d+):\s*(?:if constexpr \(([^)]*)\))?",
+                            body))
+    assert cases.pop("0") == ""
+    kinds = {"f32": lambda f32, u8: f32,
+             "f32 || u8": lambda f32, u8: f32 or u8,
+             "f32 && u8": lambda f32, u8: f32 and u8}
+    for b, cond in cases.items():
+        for (dtype, f32), buckets in (
+                ((torch.uint8, True), PACKED_BUCKETS[torch.uint8]),
+                ((torch.uint16, True), PACKED_BUCKETS[torch.uint16]),
+                ((torch.uint8, False), DOUBLE_BUCKETS[torch.uint8]),
+                ((torch.uint16, False), DOUBLE_BUCKETS[torch.uint16])):
+            assert kinds[cond](f32, dtype == torch.uint8) == (
+                int(b) in buckets), (b, dtype, f32)
+    below = re.search(r"constexpr int bucket_below\(int nmax\) \{\s*return "
+                      r"([^;]*);", AGREE_CU)[1]
+    pairs = dict((int(a), int(b)) for a, b in
+                 re.findall(r"nmax == (\d+) \? (\d+)", below))
+    for buckets in PACKED_BUCKETS.values():
+        for lo, hi in zip(buckets, buckets[1:]):
+            assert pairs[hi] == lo
+        assert buckets[0] not in pairs
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: byte i of the result is byte
+    (sel >> 4i) & 7 of the 8 bytes {y:x}."""
+    v = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros_like(x, dtype=np.uint32)
+    for i in range(4):
+        b = np.uint64((sel >> (4 * i)) & 7)
+        out |= ((v >> (np.uint64(8) * b)) & np.uint64(0xFF)).astype(
+            np.uint32) << np.uint32(8 * i)
+    return out
+
+
+def _selectors(struct):
+    """The __byte_perm selectors of agree.cu's Pack<struct>, in source
+    order (put's, then get's)."""
+    body = AGREE_CU[AGREE_CU.index(f"struct Pack<{struct}> {{"):]
+    body = body[:body.index("};")]
+    return [int(s, 16) for s in re.findall(r"(0x[0-9A-F]{4})\b", body)]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_packed_sample_identities(dtype):
+    """Seeded sample bits (those of v + 1.5 * 2^23 for |v| < 2^18), packed
+    into words slot by slot with agree.cu's put() selectors and read back
+    with its get() selectors: each slot reads as rint(v) & mod, zero above
+    it; the dp4a / dp2a sum of a word's slots, all or the first k, is the
+    int sum of theirs; and that int, read as a denormal and taken up by
+    kUp, less m1 * kScale, is the recomputing sweep's d1 = u - m1 times
+    kScale, bit for bit, in float32 (2^126, 2^-23) and float64 (2^1022,
+    2^-52), as are the covariance and variance chains on such d1."""
+    mod = int(np.iinfo(dtype).max)
+    per = 4 if dtype == np.uint8 else 2
+    sel = _selectors("uint8_t" if dtype == np.uint8 else "uint16_t")
+    put, get = sel[:per - 1], sel[per - 1:]
+    if dtype == np.uint8:
+        assert get == [0x4440]
+        get = [0x4440 | s for s in range(4)]
+    assert len(put) == per - 1 and len(get) == per
+    g = np.random.default_rng(0xB17E)
+    v = np.concatenate([g.uniform(-2**18 + 1, 2**18 - 1, (per, 4000)),
+                        g.integers(-300, mod + 300, (per, 4000))], axis=1)
+    v = v.astype(np.float32)
+    bits = (v + MAGIC_ROUND).view(np.uint32)
+    want = (np.rint(v).astype(np.int64) & mod).astype(np.uint32)
+    word = bits[0].copy()  # slot 0 takes the word whole
+    for s in range(1, per):
+        word = _byte_perm(word, bits[s], put[s - 1])
+    zero = np.zeros_like(word)
+    for s in range(per):
+        np.testing.assert_array_equal(_byte_perm(word, zero, get[s]),
+                                      want[s])
+    # Pack<T>::sum: __dp4a(w, ones, 0) adds byte i of w times byte i of
+    # ones; __dp2a_lo(w, ones, 0) the low half times byte 0 of ones and the
+    # high half times byte 1.
+    ones = int(re.search(r"kOnes = (0x[0-9a-f]+)u;", AGREE_CU[
+        AGREE_CU.index(f"struct Pack<{'uint8_t' if per == 4 else 'uint16_t'}>"
+                       ):])[1], 16)
+    width = 32 // per
+    for k in range(1, per + 1):  # a whole word, or the first k slots
+        mask = ones if k == per else ones & ((1 << (8 * k)) - 1)
+        dot = sum(((word >> np.uint32(width * i)) & np.uint32(mod))
+                  * ((mask >> (8 * i)) & 0xFF) for i in range(per))
+        np.testing.assert_array_equal(dot, want[:k].sum(axis=0))
+    # Scaled<C>: m1 as the sweep makes it, the mean of n samples.
+    u = want.reshape(-1)
+    n = 33
+    m1 = (g.integers(0, n * mod + 1, u.size).astype(np.float32)
+          / np.float32(n))
+    for ft, ut, up, scale in ((np.float32, np.uint32, 2.0**126, 2.0**-23),
+                              (np.float64, np.uint64, 2.0**1022, 2.0**-52)):
+        d1 = u.astype(ft) - m1.astype(ft)
+        d1s = (u.astype(ut).view(ft) * ft(up)) - m1.astype(ft) * ft(scale)
+        np.testing.assert_array_equal(d1s, d1 * ft(scale))
+        d0 = g.integers(-mod, mod + 1, u.size).astype(ft) / ft(3)
+        cov, var, cov_s, var_s = ft(0), ft(0), ft(0), ft(0)
+        for a, b, bs in zip(d0[:n], d1[:n], d1s[:n]):
+            cov, var = cov + a * b, var + b * b
+            cov_s, var_s = cov_s + a * bs, var_s + bs * bs
+        assert cov_s == cov * ft(scale) and var_s == var * ft(scale)**2

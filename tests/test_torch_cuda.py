@@ -13,7 +13,7 @@ from libbicos_tpu_torch import descriptor as td
 from libbicos_tpu_torch import search as ts
 from libbicos_tpu_torch.io import synthetic_stack_pair
 from libbicos_tpu_torch.kernels import _build
-from libbicos_tpu_torch.kernels.agree import agree_cuda
+from libbicos_tpu_torch.kernels.agree import agree_cuda, packed_bucket
 from libbicos_tpu_torch.kernels.bases import chunk_window_bases_cuda
 from libbicos_tpu_torch.kernels.consistency import (
     row_minima_consistency_words,
@@ -74,16 +74,35 @@ def test_scan_kernel_equal(dev, n, mode, w):
     assert none is None and torch.equal(f2, pf)
 
 
+# agree.cu's packed sweep at each edge of its shot buckets
+# (kernels/agree.PACKED_BUCKETS: u8 16 / 33 / 65, u16 16 / 33, the
+# recomputing sweep past them), in u8 and u16, at steps whose x tiles have
+# remainders (20, 40 and 7 x values).
+BUCKET_EDGES = [(n, dtype, step, 2.0 * n)
+                for n in (2, 3, 8, 9, 16, 17, 33, 34, 65)
+                for dtype in (np.uint8, np.uint16)
+                for step in (0.1, 0.05, 0.3)]
+
+
 @pytest.mark.parametrize("n, dtype, step, minvar", [
     (33, np.uint8, 0.1, 66.0), (33, np.uint8, None, None),
     (9, np.uint16, 0.25, 18.0), (65, np.uint16, 0.5, None),
-    (2, np.uint8, None, 4.0),
+    (2, np.uint8, None, 4.0), *BUCKET_EDGES,
 ])
 def test_agree_kernel_matches_plain(dev, n, dtype, step, minvar):
+    """The agree kernel against the plain agree; ``agree_packed`` counts
+    the launch where the packed sweep ran (a step and a bucket that holds
+    n: not u16 past 33 shots), and only there."""
     s0, s1 = _pair(dev, n, 6, 200, dtype)
     disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
                            tb.NoDuplicates(), backend="torch")
+    _build.reset_launch_counts()
     out, corr = agree_cuda(disp, s0, s1, 0.5, step, minvar)
+    packed = step is not None and (dtype == np.uint8 or n <= 33)
+    assert bool(packed_bucket(n, s0.dtype, tb.Precision.SINGLE,
+                              step)) == packed
+    assert _build.launch_counts()["agree"] == 1
+    assert _build.launch_counts()["agree_packed"] == int(packed)
     if step is None:
         po, pc = ta.agree_integer(disp, s0, s1, 0.5, minvar)
         po = torch.where(po == ta.INVALID_I16,
@@ -105,8 +124,8 @@ def test_match_cuda_launches_every_kernel_and_matches_plain(dev):
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
     counts = _build.launch_counts()
     assert counts == {"transform": 2, "hamming": 1, "consistency": 0,
-                      "agree": 1, "band": 0, "band_consistency": 0,
-                      "bases": 0}
+                      "agree": 1, "agree_packed": 1, "band": 0,
+                      "band_consistency": 0, "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
     v = ~torch.isnan(want_d)
@@ -281,16 +300,16 @@ def test_consistency_kernel_ultrawide(dev, drange):
 @pytest.mark.parametrize("variant, drange, expect", [
     (tb.Consistency(1, True), None,
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0, "band_consistency": 0, "bases": 0}),
+      "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}),
     (tb.NoDuplicates(), (0, 63),
      {"transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-      "band": 0, "band_consistency": 0, "bases": 0}),
+      "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}),
     (tb.Consistency(3, True), (0, 63),
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0, "band_consistency": 0, "bases": 0}),
+      "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}),
     (tb.Consistency(2, False), (-10, 40),
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "band": 0, "band_consistency": 0, "bases": 0}),
+      "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}),
 ])
 def test_match_cuda_variants_match_plain(dev, variant, drange, expect):
     s0, s1 = _pair(dev, 33, 16, 400)
@@ -518,7 +537,7 @@ def test_match_sharded_w_on_one_card_equals_match(dev, variant, drange,
                                             corrmap=True, backend="cuda")
     assert _build.launch_counts() == {
         "transform": 6, "hamming": 0, "consistency": 0, "agree": 3,
-        **band_launches, "bases": 0}
+        "agree_packed": 3, **band_launches, "bases": 0}
     for got, want in ((got_d, want_d), (got_c, want_c)):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
@@ -649,11 +668,15 @@ def _assert_plain_bar(out, corr, po, pc):
 
 
 @pytest.mark.parametrize("step, minvar", [(0.1, 2.0), (0.25, None),
-                                          (None, 2.0), (None, None)])
+                                          (None, 2.0), (None, None),
+                                          (0.05, 2.0), (0.3, None)])
 @pytest.mark.parametrize("n, dtype, chunk, wcap", [
     (2, np.uint8, 256, 640), (33, np.uint8, 256, 640),
     (33, np.uint16, 512, 1024), (65, np.uint16, 512, 1024),
     (65, np.uint8, 256, 640),
+    # the packed sweep's other buckets and the u16 fallback
+    (16, np.uint16, 256, 640), (17, np.uint8, 256, 640),
+    (34, np.uint8, 256, 640), (34, np.uint16, 256, 640),
 ])
 def test_windowed_agree_equals_global(dev, n, dtype, chunk, wcap, step,
                                       minvar):
@@ -696,17 +719,26 @@ def test_windowed_agree_rejects_bad_windows(dev):
 
 
 @pytest.mark.parametrize("step, minvar", [(0.1, 66.0), (0.25, None),
-                                          (None, 18.0), (None, None)])
-@pytest.mark.parametrize("n, dtype", [(33, np.uint8), (9, np.uint16),
-                                      (65, np.uint16), (2, np.uint8)])
+                                          (None, 18.0), (None, None),
+                                          (0.05, 18.0), (0.3, None)])
+@pytest.mark.parametrize("n, dtype", [
+    (33, np.uint8), (9, np.uint16), (65, np.uint16), (2, np.uint8),
+    # the edges of the packed sweep's buckets in DOUBLE
+    (3, np.uint16), (8, np.uint8), (16, np.uint8), (17, np.uint16),
+    (17, np.uint8), (33, np.uint16), (34, np.uint8), (34, np.uint16),
+    (65, np.uint8)])
 def test_double_agree_kernel_matches_plain(dev, n, dtype, step, minvar):
     """The f64 agree kernel against the plain f64 agree; DOUBLE differs
-    from SINGLE in the corrmap somewhere."""
+    from SINGLE in the corrmap somewhere. DOUBLE takes the packed sweep for
+    u8 at 17 to 33 shots alone (``agree_packed``)."""
     s0, s1 = _pair(dev, n, 6, 300, dtype)
     disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
                            tb.NoDuplicates(), backend="torch")
+    _build.reset_launch_counts()
     out, corr = agree_cuda(disp, s0, s1, 0.5, step, minvar,
                            precision=tb.Precision.DOUBLE)
+    packed = step is not None and dtype == np.uint8 and 17 <= n <= 33
+    assert _build.launch_counts()["agree_packed"] == int(packed)
     _assert_plain_bar(out, corr, *_plain_agree(
         disp, s0, s1, 0.5, step, minvar, tb.Precision.DOUBLE))
     if n == 33:
@@ -735,7 +767,8 @@ def test_match_cuda_dynwin_equals_window_off(dev, monkeypatch, variant,
     got = tb.match(s0, s1, cfg, corrmap=True)
     assert _build.launch_counts() == {
         "transform": 2, "hamming": 0, "consistency": 0, "agree": 1,
-        "band": 0, "band_consistency": 0, "bases": 1, scan: 1}
+        "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 1,
+        scan: 1}
     for a, b in zip(got, want):
         _assert_bitwise(a, b)
 
@@ -748,7 +781,7 @@ def test_match_cuda_double_launches_and_matches_plain(dev):
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True)
     assert _build.launch_counts() == {
         "transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-        "band": 0, "band_consistency": 0, "bases": 0}
+        "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     _assert_plain_bar(got_d, got_c, want_d, want_c)
 
@@ -766,16 +799,18 @@ def _agree_edge(dev, case):
     g = np.random.default_rng(23)
     n, dtype = {"n2": (2, np.uint8), "n65_u8": (65, np.uint8),
                 "n65_u16": (65, np.uint16), "u16_extremes": (9, np.uint16),
-                "band_offset": (9, np.uint16)}.get(case, (9, np.uint8))
+                "band_offset": (9, np.uint16), "ties_n33": (33, np.uint8),
+                "u8_extremes_n33": (33, np.uint8),
+                "u16_extremes_n33": (33, np.uint16)}.get(case, (9, np.uint8))
     s0, s1 = _pair(dev, n, 4, EDGE_W, dtype, seed=29)
     disp = ts.search_stack(s0, s1, tb.TransformMode.LIMITED,
                            tb.NoDuplicates(), backend="torch")
     thr, minvar, off = 0.5, 2.0 * n, 0
-    if case in ("ties_constant", "ties_symmetric"):
+    if case in ("ties_constant", "ties_symmetric", "ties_n33"):
         # Equal neighbours (y0 == y1 == y2: every x gives one series) or a
         # mirror (y0 == y2: x and -x give one series).
         cols = torch.arange(EDGE_W, device=dev)
-        src = torch.zeros_like(cols) if case == "ties_constant" else cols % 2
+        src = cols % 2 if case == "ties_symmetric" else torch.zeros_like(cols)
         s1 = s1[:, :, src].contiguous()
         thr = -1.0
     elif case in ("nan_no_minvar", "minvar"):
@@ -787,10 +822,13 @@ def _agree_edge(dev, case):
         disp = disp.clone()
         disp[0, cols] = cols.to(torch.int16)  # col1 = 0
         disp[1, cols] = (cols - (EDGE_W - 1)).to(torch.int16)  # col1 = w - 1
-    elif case in ("u16_extremes", "band_offset"):
-        # 0 next to 65535: the parabola overshoots below 0 and above 65535.
-        s1 = torch.from_numpy(g.choice([0, 65535], size=tuple(s1.shape))
-                              .astype(np.uint16)).to(dev)
+    elif case in ("u16_extremes", "band_offset", "u8_extremes_n33",
+                  "u16_extremes_n33"):
+        # 0 next to the maximum: the parabola overshoots below 0 and above
+        # the maximum, and the modular cast wraps.
+        top = int(np.iinfo(dtype).max)
+        s1 = torch.from_numpy(g.choice([0, top], size=tuple(s1.shape))
+                              .astype(dtype)).to(dev)
         thr = -1.0
         if case == "band_offset":
             off = 150
@@ -804,26 +842,40 @@ def _agree_edge(dev, case):
 
 AGREE_EDGES = ["ties_constant", "ties_symmetric", "nan_no_minvar", "minvar",
                "border", "n2", "n65_u8", "n65_u16", "u16_extremes",
-               "band_offset"]
+               "band_offset", "ties_n33", "u8_extremes_n33",
+               "u16_extremes_n33"]
+# Where agree.cu's DOUBLE corrmap differs from the plain f64 agree's in its
+# last bits: the kernel's covariance and variance chains are fmas, the plain
+# version's a multiply, then an add. On n=33 u8 0/255 stacks one or two
+# NXCORRs within 3.5e-18 of 0 round apart (at steps 0.1, 0.05 and the
+# integer check; the recomputing sweep gives the same bits). There the
+# DOUBLE corrmap is held to the usual bar.
+DOUBLE_NEAR = {"u8_extremes_n33"}
 
 
-@pytest.mark.parametrize("step", [0.1, 0.25, None])
+@pytest.mark.parametrize("step", [0.1, 0.25, None, 0.05, 0.3])
 @pytest.mark.parametrize("case", AGREE_EDGES)
 def test_agree_kernel_edges(dev, case, step):
     """The agree kernel against the plain agree (the usual bar), its DOUBLE
     instantiation against the plain f64 agree and the windowed variant
-    against the global-read one (both bit for bit), at the edges of the
-    sweep: ties, NaN and -1 NXCORRs, border columns, n = 2 and 65, u16
-    overshoot, a column band with an offset."""
+    against the global-read one (both bit for bit; DOUBLE_NEAR: the usual
+    bar), at the edges of the sweep: ties, NaN and -1 NXCORRs, border
+    columns, n = 2 and 65, u16 overshoot, a column band with an offset,
+    and at n = 33 (the packed sweep's headline bucket) ties and samples
+    that wrap at both widths."""
     s0, s1, disp, thr, minvar, off = _agree_edge(dev, case)
     out, corr = agree_cuda(disp, s0, s1, thr, step, minvar, off)
     _assert_plain_bar(out, corr, *_plain_agree(
         disp, s0, s1, thr, step, minvar, tb.Precision.SINGLE, off))
     dbl = agree_cuda(disp, s0, s1, thr, step, minvar, off,
                      precision=tb.Precision.DOUBLE)
-    for a, b in zip(dbl, _plain_agree(disp, s0, s1, thr, step, minvar,
-                                      tb.Precision.DOUBLE, off)):
-        _assert_bitwise(a, b)
+    want = _plain_agree(disp, s0, s1, thr, step, minvar, tb.Precision.DOUBLE,
+                        off)
+    if case in DOUBLE_NEAR:
+        _assert_plain_bar(*dbl, *want)
+    else:
+        for a, b in zip(dbl, want):
+            _assert_bitwise(a, b)
     if not off:
         chunk, wcap = 256, 640
         bases = chunk_window_bases_cuda(
@@ -841,7 +893,7 @@ def test_agree_kernel_edges(dev, case, step):
     swept = kept & (col1 > 0) & (col1 < s1.shape[2] - 1)
     if step is None:
         swept = torch.zeros_like(kept)
-    if case == "ties_constant" and step is not None:
+    if case in ("ties_constant", "ties_n33") and step is not None:
         # Every x ties: the first, x = -1, wins.
         assert bool(swept.any())
         assert torch.equal(out[swept], disp[swept].float() + 1.0)
