@@ -43,17 +43,17 @@
    Each call's launch counts are set to 0 just before it and read just
    after, and must equal the kernels of its path (``agree_packed``, the
    agree launches that took the packed sweep: every subpixel call, not
-   N's integer agree); two runs must agree; the
-   valid share must be above 0. The call's scan kernel and the agree
-   kernel (N: the integer agree) are compared with their plain versions
-   at the shapes the call gives them, and the call and its kernels are
-   timed (CUDA events, median of 5 after a warm run) beside their plain
-   versions (one run each). Then two more calls of A's configuration: I
-   with the dynamic window (``BICOS_AGREE_DYNWIN=640``, chunk 256), which
-   launches the bases kernel and the windowed agree and must equal A bit
-   for bit, with a share of windowed chunks above 0; J in DOUBLE, whose
-   agree kernel must equal the plain f64 agree bit for bit at the call's
-   shapes.
+   N's integer agree; ``agree_double``, those in float64: J's alone); two
+   runs must agree; the valid share must be above 0. The call's scan
+   kernel and the agree kernel (N: the integer agree) are compared with
+   their plain versions at the shapes the call gives them, and the call
+   and its kernels are timed (CUDA events, median of 5 after a warm run)
+   beside their plain versions (one run each). Then two more calls of
+   A's configuration: I with the dynamic window
+   (``BICOS_AGREE_DYNWIN=640``, chunk 256), which launches the bases
+   kernel and the windowed agree and must equal A bit for bit, with a
+   share of windowed chunks above 0; J in DOUBLE, whose agree kernel must
+   equal the plain f64 agree bit for bit at the call's shapes.
 4. Runs four sharded calls on the same input over a virtual mesh of 4
    bands on the one card (``sharding.make_mesh(4, virtual=True)``): E
    ``match_sharded_w`` NoDuplicates, F ``match_sharded_w`` Consistency(1,
@@ -1710,7 +1710,8 @@ def main() -> None:
     mv = MIN_VARIANCE * n
     nx = len(ta.subpixel_xgrid(STEP))
     # Launches per call; "agree_packed": the agree launches that took the
-    # packed sweep (every subpixel call here, not N's integer agree).
+    # packed sweep (every subpixel call here, not N's integer agree);
+    # "agree_double": those in float64 (J's alone, below).
     path = dict.fromkeys(_build.LAUNCHES, 0)
     nodup_path = {**path, "transform": 2, "hamming": 1, "agree": 1,
                   "agree_packed": 1}
@@ -1862,7 +1863,7 @@ def main() -> None:
     res, d1, c1 = call_case(
         torch, "J", lambda backend: bicos.match(s0, s1, cfg, corrmap=True,
                                                 backend=backend),
-        nodup_path, truth)
+        {**nodup_path, "agree_double": 1}, truth)
     check_agree(torch, "call J", disp, s0, s1, THRESHOLD, STEP, mv,
                 double=True)
     jms = time_ms(torch, lambda: agree_cuda(

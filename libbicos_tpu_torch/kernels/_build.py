@@ -36,9 +36,11 @@ NVCC_FLAGS = (
 )
 
 # "agree_packed" counts the agree launches that took the packed sweep
-# (kernels/agree.py::packed_bucket), beside their count in "agree".
+# (kernels/agree.py::packed_bucket) and "agree_double" those in float64
+# (Precision.DOUBLE), each beside their count in "agree".
 LAUNCHES = {"transform": 0, "hamming": 0, "consistency": 0, "agree": 0,
-            "agree_packed": 0, "band": 0, "band_consistency": 0, "bases": 0}
+            "agree_packed": 0, "agree_double": 0, "band": 0,
+            "band_consistency": 0, "bases": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -162,4 +162,6 @@ def agree_cuda(disp: torch.Tensor, stack0: torch.Tensor,
     _build.count_launch("agree")
     if packed:
         _build.count_launch("agree_packed")
+    if precision == Precision.DOUBLE:
+        _build.count_launch("agree_double")
     return out, corr

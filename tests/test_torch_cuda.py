@@ -103,6 +103,7 @@ def test_agree_kernel_matches_plain(dev, n, dtype, step, minvar):
                               step)) == packed
     assert _build.launch_counts()["agree"] == 1
     assert _build.launch_counts()["agree_packed"] == int(packed)
+    assert _build.launch_counts()["agree_double"] == 0
     if step is None:
         po, pc = ta.agree_integer(disp, s0, s1, 0.5, minvar)
         po = torch.where(po == ta.INVALID_I16,
@@ -124,8 +125,8 @@ def test_match_cuda_launches_every_kernel_and_matches_plain(dev):
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
     counts = _build.launch_counts()
     assert counts == {"transform": 2, "hamming": 1, "consistency": 0,
-                      "agree": 1, "agree_packed": 1, "band": 0,
-                      "band_consistency": 0, "bases": 0}
+                      "agree": 1, "agree_packed": 1, "agree_double": 0,
+                      "band": 0, "band_consistency": 0, "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
     v = ~torch.isnan(want_d)
@@ -300,16 +301,20 @@ def test_consistency_kernel_ultrawide(dev, drange):
 @pytest.mark.parametrize("variant, drange, expect", [
     (tb.Consistency(1, True), None,
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}),
+      "agree_packed": 1, "agree_double": 0, "band": 0,
+      "band_consistency": 0, "bases": 0}),
     (tb.NoDuplicates(), (0, 63),
      {"transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-      "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}),
+      "agree_packed": 1, "agree_double": 0, "band": 0,
+      "band_consistency": 0, "bases": 0}),
     (tb.Consistency(3, True), (0, 63),
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}),
+      "agree_packed": 1, "agree_double": 0, "band": 0,
+      "band_consistency": 0, "bases": 0}),
     (tb.Consistency(2, False), (-10, 40),
      {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}),
+      "agree_packed": 1, "agree_double": 0, "band": 0,
+      "band_consistency": 0, "bases": 0}),
 ])
 def test_match_cuda_variants_match_plain(dev, variant, drange, expect):
     s0, s1 = _pair(dev, 33, 16, 400)
@@ -537,7 +542,8 @@ def test_match_sharded_w_on_one_card_equals_match(dev, variant, drange,
                                             corrmap=True, backend="cuda")
     assert _build.launch_counts() == {
         "transform": 6, "hamming": 0, "consistency": 0, "agree": 3,
-        "agree_packed": 3, **band_launches, "bases": 0}
+        "agree_packed": 3, "agree_double": 0, **band_launches,
+        "bases": 0}
     for got, want in ((got_d, want_d), (got_c, want_c)):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
@@ -739,6 +745,7 @@ def test_double_agree_kernel_matches_plain(dev, n, dtype, step, minvar):
                            precision=tb.Precision.DOUBLE)
     packed = step is not None and dtype == np.uint8 and 17 <= n <= 33
     assert _build.launch_counts()["agree_packed"] == int(packed)
+    assert _build.launch_counts()["agree_double"] == 1
     _assert_plain_bar(out, corr, *_plain_agree(
         disp, s0, s1, 0.5, step, minvar, tb.Precision.DOUBLE))
     if n == 33:
@@ -767,8 +774,8 @@ def test_match_cuda_dynwin_equals_window_off(dev, monkeypatch, variant,
     got = tb.match(s0, s1, cfg, corrmap=True)
     assert _build.launch_counts() == {
         "transform": 2, "hamming": 0, "consistency": 0, "agree": 1,
-        "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 1,
-        scan: 1}
+        "agree_packed": 1, "agree_double": 0, "band": 0,
+        "band_consistency": 0, "bases": 1, scan: 1}
     for a, b in zip(got, want):
         _assert_bitwise(a, b)
 
@@ -781,7 +788,8 @@ def test_match_cuda_double_launches_and_matches_plain(dev):
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True)
     assert _build.launch_counts() == {
         "transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-        "agree_packed": 1, "band": 0, "band_consistency": 0, "bases": 0}
+        "agree_packed": 1, "agree_double": 1, "band": 0,
+        "band_consistency": 0, "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     _assert_plain_bar(got_d, got_c, want_d, want_c)
 
