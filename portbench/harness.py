@@ -267,7 +267,8 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool, *,
     step = cfg.get("subpixel_step")
     readings = Readings(
         cfg=cfg, shape=(n, h, w), itemsize=itemsize,
-        nw=roofline.words_for(n, cfg["mode"]), window_s=window_s,
+        nw=roofline.words_for(n, cfg["mode"]),
+        bits=roofline.bits_for(n, cfg["mode"]), window_s=window_s,
         pairs=completed, pair_ms=pair_ms, setup_s=setup_s,
         program_peak_bytes=(window_peak - held) if cuda else None,
         entry=entry, t_open=t_open, trace=trace_data, traced=traced,

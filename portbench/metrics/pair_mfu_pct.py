@@ -12,8 +12,8 @@ def read(r):
         return None
     n, h, w = r.shape
     cons = r.cfg["variant"]["kind"] == "Consistency"
+    drange = r.cfg.get("disparity_range")
     least = (2 * roofline.transform_bound(n, h, w, r.itemsize, r.nw)[0]
-             + roofline.scan_bound(h, w, r.nw, r.cfg.get("disparity_range"),
-                                   16 if cons else 8)[0]
+             + roofline.scan_bound(h, w, r.bits, drange, cons)[0]
              + r.agree_bound_ms())
     return 100 * least / (r.trace.window_s * 1e3 / len(r.traced))

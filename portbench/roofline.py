@@ -1,6 +1,7 @@
-"""The yardstick of the benchmark's roofline metrics: published H100 peaks
-and the work a kernel needs on an input, counted from shapes and, for the
-agree stage, from the kept and swept pixels of the reference's search.
+"""The yardstick of the benchmark's roofline metrics: H100 peaks, published
+or measured, and the work a kernel needs on an input, counted from shapes
+and, for the agree stage, from the kept and swept pixels of the
+reference's search.
 
 A roofline share is the least time the chip could take, the larger of
 bytes over the memory rate and each kind of operation over its rate,
@@ -8,18 +9,51 @@ divided by the kernel's measured device time. Work is counted from what
 the algorithm needs, never from what a kernel happens to do: each input
 byte read once and each output byte written once.
 
-One H100 SXM at its 700 W limit: HBM bytes/s from NVIDIA's data sheet,
-and instructions/s from the 132 SMs, the 1.98 GHz boost clock and the
-per-SM rates of the CUDA programming guide's throughput table for compute
-capability 9.0: 128 FP32 add/mul/fma a clock, 64 FP64, 16 popcounts and
-16 conversions (F2I, I2F) a clock.
+One H100 SXM at its 700 W limit, clocked at ``SM_CLOCKS`` (132 SMs at the
+1.98 GHz boost clock):
+
+* ``bytes``: HBM bytes/s, NVIDIA's data sheet (3.35 TB/s).
+* ``fp32``, ``fp64``, ``popc``, ``conv``: instructions/s from the per-SM
+  rates of the CUDA programming guide's throughput table for compute
+  capability 9.0: 128 FP32 add/mul/fma a clock, 64 FP64, 16 popcounts and
+  16 conversions (F2I, I2F) a clock.
+* ``b1_mma``: 1-bit AND products a second of the tensor cores
+  (``wgmma`` m64nNk256 and ``mma.sync`` m16n8k256 ``.b1`` ``.and.popc`` on
+  sm_90a), 32768 a clock an SM: 8 times the INT8 rate, which NVIDIA's
+  H100 SXM data sheet gives as 1,979 dense TOPS, that is 1979e12 / 2 / 132
+  SMs / 1.83 GHz = 4096 multiply-adds a clock an SM. NVIDIA publishes no
+  1-bit rate for the H100; ``portbench/rate_probe.py`` measured it on an
+  H100 SXM at 700 W: ``wgmma`` 1-bit 31,706-31,992 a clock an SM at the
+  sampled 1815-1845 MHz, ``wgmma`` INT8 3,970-3,990 at 1770-1800 MHz (97%
+  of 32768 and of 4096), ``mma.sync`` 1-bit 20,141-20,536 at 1980 MHz.
+* ``bit_products``: exact products of two descriptor bits a second,
+  summed over every unit that forms them at the same time. A Hamming
+  distance is ``popc(a) + popc(b) - 2 popc(a & b)``, each descriptor's own
+  popcount counted once: one 1-bit AND product a bit pair, ``b1_mma``.
+  The popcount pipe counts 32 bit pairs an instruction (after an XOR on
+  the ALU): 32 x ``popc``, 512 a clock an SM. No other unit adds bit
+  products at a comparable rate: +-1 planes in INT8 (``ham = (bits - dot)
+  / 2``), FP8 and FP16 run on the same tensor cores at an eighth of the
+  1-bit rate or less, so they share it rather than add to it; the ALU (64
+  logic instructions a clock an SM) needs two or three of them a 32-bit
+  word for carry-save counting, at most about 700 bit pairs a clock, and
+  it also runs the argmin.
+* ``min``: 16-bit minima a second, 256 a clock an SM: the packed 3-input
+  mins (``VIMNMX3``, ``VHMNMX``) take two minima in each of two 16-bit
+  lanes, 64 instructions a clock an SM, and the integer and half forms
+  share one pipe. The argmin of a scan takes at least one min a (pixel,
+  column) pair and direction. ``rate_probe.py`` measured 248-249 a clock
+  an SM at 1980 MHz for ``min.u16x2``, ``min.f16x2`` and the two
+  interleaved.
 """
 
 from __future__ import annotations
 
 SM_CLOCKS = 132 * 1.98e9
 PEAK = {"bytes": 3.35e12, "fp32": 128 * SM_CLOCKS, "fp64": 64 * SM_CLOCKS,
-        "popc": 16 * SM_CLOCKS, "conv": 16 * SM_CLOCKS}
+        "popc": 16 * SM_CLOCKS, "conv": 16 * SM_CLOCKS,
+        "b1_mma": 32768 * SM_CLOCKS, "min": 256 * SM_CLOCKS}
+PEAK["bit_products"] = PEAK["b1_mma"] + 32 * PEAK["popc"]
 INVALID_I16 = -32768
 
 
@@ -39,19 +73,30 @@ def transform_bound(n: int, h: int, w: int, itemsize: int, nw: int) -> tuple:
     return bound(n * h * w * itemsize + h * w * nw * 4)
 
 
-def scan_bound(h: int, w: int, nw: int, drange, out_bytes: int) -> tuple:
-    """A scan on an ``h x w`` pair of ``nw``-word descriptors: one popcount
-    per (left pixel, right column in ``drange``, word); both word arrays
-    read once, ``out_bytes`` written per pixel. A Consistency scan needs
-    each popcount once for both directions."""
+def scan_pairs(w: int, drange) -> int:
+    """(left pixel, right column) pairs of one row of ``w`` pixels: every
+    pair, or those whose disparity lies in ``drange = (dmin, dmax)``."""
     if drange is None:
-        pairs = w * w
-    else:
-        dmin, dmax = drange
-        pairs = sum(max(0, min(c - dmin, w - 1) - max(c - dmax, 0) + 1)
-                    for c in range(w))
-    return bound(2 * h * w * nw * 4 + h * w * out_bytes,
-                 popc=h * pairs * nw)
+        return w * w
+    dmin, dmax = drange
+    return sum(max(0, min(c - dmin, w - 1) - max(c - dmax, 0) + 1)
+               for c in range(w))
+
+
+def scan_bound(h: int, w: int, bits: int, drange,
+               consistency: bool = False) -> tuple:
+    """A scan of an ``h x w`` pair of ``bits``-bit descriptors over the
+    pairs of :func:`scan_pairs`: ``pairs x bits`` bit products at
+    ``PEAK["bit_products"]``, one 16-bit min a pair and direction (two
+    for a Consistency scan, which takes the forward and reverse minima of
+    the same distances) at ``PEAK["min"]``. Bytes: both 32-bit word arrays
+    read once, and the minima written once, 8 bytes a pixel (16 with
+    ``consistency``)."""
+    pairs = h * scan_pairs(w, drange)
+    nw = -(-bits // 32)
+    return bound(2 * h * w * nw * 4 + h * w * (16 if consistency else 8),
+                 bit_products=pairs * bits,
+                 min=pairs * (2 if consistency else 1))
 
 
 def agree_pixels(disp, w1: int) -> tuple:
@@ -93,11 +138,14 @@ def agree_bound(n: int, h: int, w: int, w1: int, itemsize: int, swept: int,
     return bound(nbytes, fp32=fp32 + conv + comp)
 
 
-def words_for(n: int, mode: str) -> int:
-    """32-bit words of a descriptor: LIMITED ``3 (n - 2) + max(0, n - 4) +
-    4`` bits, FULL ``n^2 - 2n + 3``."""
+def bits_for(n: int, mode: str) -> int:
+    """Bits of a descriptor of ``n`` shots: LIMITED ``3 (n - 2) + max(0,
+    n - 4) + 4`` (4 at n = 2), FULL ``n^2 - 2n + 3``."""
     if mode == "FULL":
-        bits = n * n - 2 * n + 3
-    else:
-        bits = 4 if n == 2 else 3 * (n - 2) + max(0, n - 4) + 4
-    return (bits + 31) // 32
+        return n * n - 2 * n + 3
+    return 4 if n == 2 else 3 * (n - 2) + max(0, n - 4) + 4
+
+
+def words_for(n: int, mode: str) -> int:
+    """32-bit words of a descriptor: ``ceil(bits_for(n, mode) / 32)``."""
+    return -(-bits_for(n, mode) // 32)

@@ -143,8 +143,8 @@ def _readings(trace, cons=False):
     cfg = {"variant": {"kind": "Consistency" if cons else "NoDuplicates"},
            "precision": "SINGLE", "disparity_range": None}
     return harness.Readings(
-        cfg=cfg, shape=SHAPE, itemsize=1, nw=4, window_s=2.0, pairs=10,
-        pair_ms=[float(i) for i in range(1, 21)], setup_s=9.5,
+        cfg=cfg, shape=SHAPE, itemsize=1, nw=4, bits=126, window_s=2.0,
+        pairs=10, pair_ms=[float(i) for i in range(1, 21)], setup_s=9.5,
         program_peak_bytes=3 * 2**29, entry=None, t_open=0.0,
         trace=trace, traced=[0, 1] if trace else [], nx=20,
         agree_pixels={0: (600, 20), 1: (500, 10)})
@@ -155,7 +155,8 @@ def test_metric_readers():
     r = _readings(synthetic_trace())
     read = {m["name"]: spec.load_module("metrics", m["name"]).read(r)
             for m in BENCH["per_layer"]}
-    scan = roofline.scan_bound(h, w, 4, None, 8)[0]
+    scan = roofline.scan_bound(h, w, roofline.bits_for(n, "LIMITED"),
+                               None)[0]
     assert read["scan_roofline_pct"] == pytest.approx(100 * scan / 0.030)
     agree = sum(roofline.agree_bound(n, h, w, w, 1, *px, 20)[0]
                 for px in ((600, 20), (500, 10))) / 2
