@@ -6,10 +6,12 @@
 1. Prints the card (name, power limit), the torch and CUDA versions, and
    builds the CUDA kernels from ``libbicos_tpu_torch/csrc``; prints the
    registers, stack and spills (``-Xptxas -v``) of the agree, transform,
-   Consistency scan, fused ring step and bases kernels (one of them that
-   spills fails the run, and so does a FULL transform instance with a
-   stack frame) and the agree and transform kernels' SASS opcode counts,
-   whole and per sweep loop (``cuobjdump -sass``); of the FULL transform's
+   scan (tensor-core and ranged), Consistency scan, fused ring step and
+   bases kernels (one of them that spills fails the run, and so does a
+   FULL transform instance with a stack frame) and the agree, transform
+   and tensor-core scan kernels' SASS opcode counts, whole and per sweep
+   loop (``cuobjdump -sass``; a scan's tile loop also as SASS instructions
+   a (pixel, column) pair); of the FULL transform's
    instances (``transform_kernel<u8,16>``: u8 and u16, n = 2..16) the
    counts of the two n = 16 ones and each one's instructions a pixel.
 2. Compares each kernel with its plain PyTorch version on the card, at a
@@ -41,9 +43,11 @@
    disparity). Before them the FULL transform of N's stacks is compared
    with its plain version, and at the end timed beside the LIMITED one.
    Each call's launch counts are set to 0 just before it and read just
-   after, and must equal the kernels of its path (``agree_packed``, the
-   agree launches that took the packed sweep: every subpixel call, not
-   N's integer agree; ``agree_double``, those in float64: J's alone); two
+   after, and must equal the kernels of its path (``hamming_mma``, the
+   scan launches that took the tensor-core scan: every unranged one, not
+   C's; ``agree_packed``, the agree launches that took the packed sweep:
+   every subpixel call, not N's integer agree; ``agree_double``, those in
+   float64: J's alone); two
    runs must agree; the valid share must be above 0. The call's scan
    kernel and the agree kernel (N: the integer agree) are compared with
    their plain versions at the shapes the call gives them, and the call
@@ -100,6 +104,9 @@
    download (each fenced by ``torch.cuda.synchronize()``), the reply's
    encode and the client's decode (the ``Server-Timing`` header).
 
+It then prints how to hold the answers to a parent commit's bit for bit
+(``tools/output_hashes.py`` on both trees in one call).
+
 The bases and transform kernels' times are device times: ``LAUNCHES``
 launches behind one event pair (the bases replayed from a CUDA graph, so
 that the wrapper's host work does not sit between them), warm and with the
@@ -117,8 +124,11 @@ line before it lists the kernels with their launches (summed over the eleven
 calls and the served requests), errors, times and bounds. A kernel's bound
 is the least time the card could take for its work on this run's inputs:
 the larger of its bytes (each input read once, each output written once)
-over the memory rate and its operations over the rate of their type (see
-``PEAK``).
+over the memory rate and its operations over the rate of their type
+(``portbench/roofline.py``, ``PEAK``; a scan by its pairs x descriptor
+bits and its 16-bit minima, ``roofline.scan_bound``; beside it the
+ranged and Consistency scans' price on the popcount pipe alone,
+:func:`scan_bound`).
 """
 
 import dataclasses
@@ -130,6 +140,12 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+# The yardstick (one H100 SXM at 700 W: peaks and the work of each kernel)
+# is the benchmark's own, so that both price a kernel alike (``PEAK`` is
+# re-exported as this script's peaks).
+from portbench import roofline
+from portbench.roofline import PEAK, bits_for, bound  # noqa: F401
 
 REPO = Path(__file__).resolve().parent
 TOL = 4e-6  # corrmap bar of the JAX package's own agree kernel
@@ -163,14 +179,6 @@ SOURCES = {
 NBANDS = 4
 KERNELS = tuple(SOURCES)
 WINDOWS = ((256, 640), (512, 1024))  # (chunk, wcap) of the dynamic window
-# One H100 SXM at its 700 W limit: HBM bytes/s (NVIDIA's data sheet), and
-# instructions/s from the SM count, the 1.98 GHz boost clock and the per-SM
-# rates of the CUDA programming guide's throughput table for compute
-# capability 9.0: 128 FP32 add/mul/fma a clock (67 TFLOP/s counting an fma
-# as two), 64 FP64, 16 popcounts and 16 conversions (F2I, I2F) a clock.
-SM_CLOCKS = 132 * 1.98e9
-PEAK = {"bytes": 3.35e12, "fp32": 128 * SM_CLOCKS, "fp64": 64 * SM_CLOCKS,
-        "popc": 16 * SM_CLOCKS, "conv": 16 * SM_CLOCKS}
 
 
 def fail(msg: str) -> None:
@@ -279,28 +287,15 @@ def device_times(torch, fn, kernel: str, graph: bool) -> dict:
     return out
 
 
-def bound(nbytes: float, **ops) -> tuple:
-    """``(ms, "bytes" | "operations")``: the larger of ``nbytes`` over the
-    memory rate and each ``ops[kind]`` over ``PEAK[kind]``."""
-    t = {"bytes": nbytes / PEAK["bytes"],
-         "operations": max((v / PEAK[k] for k, v in ops.items()),
-                           default=0.0)}
-    by = max(t, key=t.get)
-    return t[by] * 1e3, by
-
-
 def scan_bound(h, w, nw, drange, out_bytes):
-    """A scan's bound on an ``h x w`` pair of ``nw``-word descriptors: one
-    popcount per (left pixel, right column in ``drange``, word); both word
-    arrays read once, ``out_bytes`` written per pixel."""
-    if drange is None:
-        pairs = w * w
-    else:
-        dmin, dmax = drange
-        pairs = sum(max(0, min(c - dmin, w - 1) - max(c - dmax, 0) + 1)
-                    for c in range(w))
+    """A scan's bound on the popcount pipe alone: one popcount per (left
+    pixel, right column in ``drange``, word) at ``PEAK["popc"]``, both word
+    arrays read once, ``out_bytes`` written per pixel. The ranged and
+    Consistency scans pay that price; each call line prints it beside the
+    yardstick's bound (``roofline.scan_bound``), which prices the tensor
+    cores too."""
     return bound(2 * h * w * nw * 4 + h * w * out_bytes,
-                 popc=h * pairs * nw)
+                 popc=h * roofline.scan_pairs(w, drange) * nw)
 
 
 def agree_bound(torch, disp, s0, s1, nx, double=False, conv_pipe=False):
@@ -335,12 +330,14 @@ def agree_bound(torch, disp, s0, s1, nx, double=False, conv_pipe=False):
 
 _KERNEL_NAME = re.compile(
     r"(agree_window_kernel|agree_kernel|transform_kernel)I((?:[a-z]|Li\d+E)+)E")
-_SCAN_NAME = re.compile(
-    r"\d(band_consistency_kernel|consistency_kernel)I((?:L[ib]\d+E)+)E")
+_SCAN_NAME = re.compile(r"\d(band_consistency_kernel|consistency_kernel|"
+                        r"row_minima_kernel)I((?:L[ib]\d+E)+)E")
 _TYPE_LETTERS = {"f": "float", "d": "double", "h": "u8", "t": "u16"}
 # The kernels whose registers, stack and spills build_report prints.
 REPORTED = ("agree", "transform", "consistency", "band_consistency",
-            "bases")
+            "bases", "row_minima_kernel")
+# hamming.cu's tensor-core scan, one instance a word count.
+_MMA_SCAN = re.compile(r"row_minima_kernel<\d>")
 _BASES_NAME = re.compile(r"\d(bases_vec_kernel|bases_kernel)E")
 
 
@@ -348,7 +345,9 @@ def short_name(mangled: str) -> str:
     """``agree_kernel<float,u8>`` for an agree or transform kernel's
     mangled name (``transform_kernel<u8,16>`` for the FULL transform of 16
     shots), ``consistency_kernel<4,1,0>`` (nw, last, global reverse minima)
-    for a Consistency scan or fused ring step, else the mangled name."""
+    for a Consistency scan or fused ring step, ``row_minima_kernel<4>``
+    (nw) for the tensor-core scan and ``row_minima_kernel<4,1>`` for the
+    ranged one, else the mangled name."""
     m = _KERNEL_NAME.search(mangled)
     if m:
         args = (num or _TYPE_LETTERS.get(c, c)
@@ -449,6 +448,30 @@ def packed_issue(ins: list, n: int, below: int) -> dict:
             "mean_pass": mufu[0], "covariance_pass": cov1 - cov0}
 
 
+def mma_loop(ins: list) -> dict:
+    """The tensor-core scan's tile loop in ``(addr, op, target)``
+    instructions: the smallest loop (the span of a backward branch) that
+    holds a BMMA, with its instructions, its BMMAs, IMADs, 3-input minima
+    (VIMNMX3) and shared loads, and its SASS instructions a (pixel, column)
+    pair: a BMMA takes 16 x 8 pairs of a warp, so the loop's instructions x
+    32 lanes over its BMMAs x 128. ``{}`` where no loop holds a BMMA."""
+    best = None
+    for addr, _, tgt in ins:
+        if tgt is None or tgt >= addr:
+            continue
+        body = [op for a, op, _ in ins if tgt <= a <= addr]
+        if "BMMA" in body and (best is None or len(body) < len(best[1])):
+            best = (f"{tgt:#06x}-{addr:#06x}", body)
+    if best is None:
+        return {}
+    span, body = best
+    out = {"span": span, "instructions": len(body),
+           **{op: body.count(op) for op in ("BMMA", "IMAD", "VIMNMX3",
+                                            "LDS")}}
+    out["per_pair"] = len(body) * 32 / (out["BMMA"] * 128)
+    return out
+
+
 def sass_report(lib: Path) -> dict:
     """Opcode counts (``SASS_OPS``) of the agree and transform kernels in
     the built library, from ``cuobjdump -sass``: over the whole kernel, and
@@ -458,8 +481,9 @@ def sass_report(lib: Path) -> dict:
     the instructions of the loop that the kernel's last backward branch
     closes (in a FULL transform, the loop over a thread's pixels); and for
     the LIMITED cells' packed agree instance (``HEADLINE_AGREE``), the
-    instructions issued a tile at n = 33 (:func:`packed_issue`).
-    ``{}`` where the toolkit has no cuobjdump."""
+    instructions issued a tile at n = 33 (:func:`packed_issue`); for each
+    tensor-core scan instance its tile loop (:func:`mma_loop`). ``{}``
+    where the toolkit has no cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -473,7 +497,8 @@ def sass_report(lib: Path) -> dict:
         if m:
             name = short_name(m[1])
             cur = (funcs.setdefault(name, [])
-                   if name.startswith(("agree", "transform")) else None)
+                   if name.startswith(("agree", "transform"))
+                   or _MMA_SCAN.fullmatch(name) else None)
             continue
         x = sass_instruction(line)
         if cur is not None and x:
@@ -501,6 +526,8 @@ def sass_report(lib: Path) -> dict:
         if name == HEADLINE_AGREE:
             report[name]["issued"] = packed_issue(full[name], 33,
                                                   HEADLINE_BELOW)
+        if _MMA_SCAN.fullmatch(name):
+            report[name]["tile_loop"] = mma_loop(ins)
     return report
 
 
@@ -509,8 +536,9 @@ _FULL_TRANSFORM = re.compile(r"transform_kernel<(u8|u16),(\d+)>")
 
 def build_report(lib: Path) -> dict:
     """Prints the registers and spills (the ``-Xptxas -v`` log beside
-    ``lib``) of the agree, transform, Consistency scan, fused ring step and
-    bases kernels, and the agree and transform kernels' SASS opcode counts;
+    ``lib``) of the agree, transform, scan, Consistency scan, fused ring
+    step and bases kernels, and the agree, transform and tensor-core scan
+    kernels' SASS opcode counts;
     fails if one of those kernels spills, or if a FULL transform instance
     has a stack frame (its words left the registers). Returns the SASS
     instructions a pixel of each FULL transform instance (its last loop,
@@ -534,9 +562,11 @@ def build_report(lib: Path) -> dict:
     stacked = [k for k, v in full.items() if v.get("stack")]
     if stacked:
         fail(f"these FULL transform instances have a stack frame: {stacked}")
-    for fam in ("consistency_kernel", "band_consistency_kernel"):
-        # registers/stack/spill bytes of each <nw,last,global> instance
-        print(f"  ptxas: {fam}<nw,last,global> registers/stack/spills: "
+    for fam, args in (("consistency_kernel", "<nw,last,global>"),
+                      ("band_consistency_kernel", "<nw,last,global>"),
+                      ("row_minima_kernel", "<nw> and <nw,ranged>")):
+        # registers/stack/spill bytes of each instance
+        print(f"  ptxas: {fam}{args} registers/stack/spills: "
               + " ".join(f"{k[len(fam):]} {v.get('registers')}/"
                          f"{v.get('stack')}/{v.get('spill_stores', 0)}"
                          for k, v in mine.items() if k.startswith(fam + "<")),
@@ -561,6 +591,12 @@ def build_report(lib: Path) -> dict:
             print(f"    loop {loop['span']}: " + " ".join(
                 f"{op} {loop[op]}" for op in ("instructions",) + SASS_OPS),
                   flush=True)
+        if v.get("tile_loop"):
+            t = v["tile_loop"]
+            print(f"    tile loop {t['span']}: {t['instructions']} "
+                  f"instructions, BMMA {t['BMMA']}, IMAD {t['IMAD']}, "
+                  f"VIMNMX3 {t['VIMNMX3']}, LDS {t['LDS']}: "
+                  f"{t['per_pair']:.3f} a (pixel, column) pair", flush=True)
         if "issued" in v:
             t = v["issued"]
             both = t["mean_pass"] + t["covariance_pass"]
@@ -1506,8 +1542,8 @@ def serve_phase(torch, s0n, s1n, cfgs, want, card) -> dict:
 
     out = {}
     path = dict.fromkeys(_build.LAUNCHES, 0)
-    nodup = {**path, "transform": 2, "hamming": 1, "agree": 1,
-             "agree_packed": 1}
+    nodup = {**path, "transform": 2, "hamming": 1, "hamming_mma": 1,
+             "agree": 1, "agree_packed": 1}
     engine = Engine(cfgs["A"], device=dev)
     t0 = time.perf_counter()
     client = start(engine, [(s0n.shape, "uint8")])
@@ -1570,7 +1606,8 @@ def serve_phase(torch, s0n, s1n, cfgs, want, card) -> dict:
             "agree_packed": 1}
     for label, params, ref, expect in (
             ("B", {"lr_maxdiff": 1, "no_dupes": 1}, "B", cons),
-            ("C", {"disp_range": f"{DRANGE[0]}:{DRANGE[1]}"}, "C", nodup)):
+            ("C", {"disp_range": f"{DRANGE[0]}:{DRANGE[1]}"}, "C",
+             {**nodup, "hamming_mma": 0})):
         _build.reset_launch_counts()
         got = client.match(s0n, s1n, corrmap=True, **params)
         launches = _build.launch_counts()
@@ -1590,7 +1627,7 @@ def serve_phase(torch, s0n, s1n, cfgs, want, card) -> dict:
     got = mclient.match(s0n, s1n, corrmap=True)
     launches = _build.launch_counts()
     want_l = {**path, "transform": 2 * NBANDS, "hamming": NBANDS,
-              "agree": NBANDS, "agree_packed": NBANDS}
+              "hamming_mma": NBANDS, "agree": NBANDS, "agree_packed": NBANDS}
     if launches != want_l:
         fail(f"phase 6: the 4-band engine launched {launches}")
     held("4-band engine", got, want["H"])
@@ -1709,12 +1746,13 @@ def main() -> None:
                           descriptor_words_cuda(k1, full_mode))}
     mv = MIN_VARIANCE * n
     nx = len(ta.subpixel_xgrid(STEP))
-    # Launches per call; "agree_packed": the agree launches that took the
-    # packed sweep (every subpixel call here, not N's integer agree);
-    # "agree_double": those in float64 (J's alone, below).
+    # Launches per call; "hamming_mma": the scan launches that took the
+    # tensor-core scan (every unranged one); "agree_packed": the agree
+    # launches that took the packed sweep (every subpixel call here, not N's
+    # integer agree); "agree_double": those in float64 (J's alone, below).
     path = dict.fromkeys(_build.LAUNCHES, 0)
-    nodup_path = {**path, "transform": 2, "hamming": 1, "agree": 1,
-                  "agree_packed": 1}
+    nodup_path = {**path, "transform": 2, "hamming": 1, "hamming_mma": 1,
+                  "agree": 1, "agree_packed": 1}
     cons_path = {**path, "transform": 2, "consistency": 1, "agree": 1,
                  "agree_packed": 1}
 
@@ -1726,7 +1764,8 @@ def main() -> None:
     calls = {
         "A": (headline(bicos.NoDuplicates(), None), nodup_path),
         "B": (headline(bicos.Consistency(1, True), None), cons_path),
-        "C": (headline(bicos.NoDuplicates(), DRANGE), nodup_path),
+        "C": (headline(bicos.NoDuplicates(), DRANGE),
+              {**nodup_path, "hamming_mma": 0}),
         "D": (headline(bicos.Consistency(1, True), DRANGE), cons_path),
         # full16's configuration (portbench/configs/full16.json): the
         # 8-word scan and the integer agree.
@@ -1780,9 +1819,12 @@ def main() -> None:
                    drange=drange, scan=kname, scan_ms=kms,
                    scan_plain_ms=plain_ms, agree_ms=ams,
                    agree_plain_ms=aplain,
-                   scan_bound_ms=scan_bound(
+                   scan_bound_ms=roofline.scan_bound(
+                       h, w, bits_for(len(a), cfg.mode.name), drange,
+                       consistency=kname == "consistency")[0],
+                   scan_popc_bound_ms=scan_bound(
                        h, w, wa.shape[2], drange,
-                       8 if kname == "hamming" else 16)[0],
+                       16 if kname == "consistency" else 8)[0],
                    agree_bound_ms=agree_bound(torch, disp, a, b, anx)[0],
                    agree_bound_conv_pipe_ms=agree_bound(
                        torch, disp, a, b, anx, conv_pipe=True)[0])
@@ -1792,7 +1834,8 @@ def main() -> None:
               f"words, {variant!r}, range {drange}, step {step}): "
               f"{res['ms']:.3f} ms with the kernels, {res['plain_ms']:.1f} "
               f"ms plain; {kname} kernel {kms:.3f} ms (bound "
-              f"{res['scan_bound_ms']:.3f} ms), plain {plain_ms:.1f} ms; "
+              f"{res['scan_bound_ms']:.3f} ms; on the popcount pipe "
+              f"{res['scan_popc_bound_ms']:.3f} ms), plain {plain_ms:.1f} ms; "
               f"agree kernel {ams:.3f} ms (bound "
               f"{res['agree_bound_ms']:.3f} ms, "
               f"{res['agree_bound_conv_pipe_ms']:.3f} ms with the roundings "
@@ -1907,7 +1950,8 @@ def main() -> None:
         "F": ("B", sharding.match_sharded_w,
               {**wpath, "band_consistency": 16}),
         "G": ("C", sharding.match_sharded_w, {**wpath, "band": 8}),
-        "H": ("A", sharding.match_sharded, {**wpath, "hamming": NBANDS}),
+        "H": ("A", sharding.match_sharded,
+              {**wpath, "hamming": NBANDS, "hamming_mma": NBANDS}),
     }
     sharded_out = {}
     col_b0, col_b1 = (sharding._bands(x, 2, mesh) for x in (s0, s1))
@@ -1975,10 +2019,11 @@ def main() -> None:
             }
         res.update(variant=repr(cfg.variant), drange=drange,
                    entry=fn.__name__, equals=ref, parts_ms=parts,
-                   # F's fused steps, like B's scan, pay each popcount once
-                   # for both directions.
-                   scan_bound_ms=scan_bound(h, w, w0.shape[2], drange,
-                                            16 if label == "F" else 8)[0])
+                   # F's fused steps, like B's scan, take the forward and
+                   # the reverse minima of each pair.
+                   scan_bound_ms=roofline.scan_bound(
+                       h, w, bits_for(n, mode.name), drange,
+                       consistency=label == "F")[0])
         results[label] = res
         print(f"call {label} ({fn.__name__}, {cfg.variant!r}, range "
               f"{drange}, {NBANDS} bands on one card): {res['ms']:.3f} ms "
@@ -2031,6 +2076,12 @@ def main() -> None:
     print("phase 6: the daemon served the headline, batched, Consistency, "
           "ranged and 4-band requests through the kernels, each equal to "
           "its in-process call", flush=True)
+    print("verify against a parent commit: unpack it into the git-ignored "
+          "_chipcheck/parent (git archive <commit> | tar -x -C "
+          "_chipcheck/parent), then run python3 tools/output_hashes.py "
+          "_chipcheck/parent --seed N and python3 tools/output_hashes.py . "
+          "--seed N in one call on the card: their lines (calls A-D, I, J, "
+          "N and each benchmark cell's pool pairs) must be equal", flush=True)
 
     transform_dt = device_times(torch, lambda: descriptor_words_cuda(
         s0, mode), "transform_kernel", graph=False)
@@ -2057,15 +2108,17 @@ def main() -> None:
         "bases": (bases_ms, bases_plain_ms),  # call I's bases
     }
     # Each kernel's bound at the shapes it was timed at: one stack's
-    # transform; A's scan, B's fused scan, E's ring and F's fused ring; A's
-    # agree; I's bases.
+    # transform; A's scan, B's fused scan, E's ring and F's fused ring (126
+    # bits a descriptor); A's agree; I's bases.
+    bits = bits_for(n, mode.name)
     bounds = {
         "transform": bound(s0.numel() * s0.element_size()
                            + w0.numel() * 4),
-        "hamming": scan_bound(h, w, w0.shape[2], None, 8),
-        "consistency": scan_bound(h, w, w0.shape[2], None, 16),
-        "band": scan_bound(h, w, w0.shape[2], None, 8),
-        "band_consistency": scan_bound(h, w, w0.shape[2], None, 16),
+        "hamming": roofline.scan_bound(h, w, bits, None),
+        "consistency": roofline.scan_bound(h, w, bits, None, consistency=True),
+        "band": roofline.scan_bound(h, w, bits, None),
+        "band_consistency": roofline.scan_bound(h, w, bits, None,
+                                                consistency=True),
         "agree": agree_bound(torch, search_disp["A"], s0, s1, nx),
         "bases": bases_bound,
     }

@@ -35,11 +35,13 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# "agree_packed" counts the agree launches that took the packed sweep
-# (kernels/agree.py::packed_bucket) and "agree_double" those in float64
-# (Precision.DOUBLE), each beside their count in "agree".
-LAUNCHES = {"transform": 0, "hamming": 0, "consistency": 0, "agree": 0,
-            "agree_packed": 0, "agree_double": 0, "band": 0,
+# "hamming_mma" counts the scan launches that took hamming.cu's full-row
+# scan on the 1-bit tensor cores (every unranged one), beside their count
+# in "hamming"; "agree_packed" counts the agree launches that took the
+# packed sweep (kernels/agree.py::packed_bucket) and "agree_double" those in
+# float64 (Precision.DOUBLE), each beside their count in "agree".
+LAUNCHES = {"transform": 0, "hamming": 0, "hamming_mma": 0, "consistency": 0,
+            "agree": 0, "agree_packed": 0, "agree_double": 0, "band": 0,
             "band_consistency": 0, "bases": 0}
 
 _P = ctypes.c_void_p

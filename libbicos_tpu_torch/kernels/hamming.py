@@ -66,7 +66,9 @@ def row_minima_words(
     ``first = -1, last = -2``.
 
     ``words0``: ``(H, W0, nw)`` int32, ``words1``: ``(H, W1, nw)`` int32,
-    on one CUDA device."""
+    on one CUDA device. Without a range the scan runs on the 1-bit tensor
+    cores (launch key ``hamming_mma`` beside ``hamming``); with one, on the
+    popcount pipe."""
     h, w0, w1, nw = check_words("row_minima_words", words0, words1)
     has_range, dmin, dmax = range_args(drange, w0, w1)
     first = torch.empty((h, w0), dtype=torch.int32, device=words0.device)
@@ -78,4 +80,6 @@ def row_minima_words(
         _build.stream_of(words0))
     _build.check(rc, "hamming")
     _build.count_launch("hamming")
+    if not has_range:
+        _build.count_launch("hamming_mma")
     return first, last

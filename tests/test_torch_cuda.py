@@ -59,19 +59,86 @@ def test_transform_kernel_bit_identical(dev, n, mode, dtype):
                            td.descriptor_words(s0, m))
 
 
+def _assert_scan_equal(w0, w1, drange=None):
+    """``row_minima_words`` against the plain scan, first and last, with
+    and without ``need_last``; ``hamming_mma`` counts the launches that
+    took the tensor-core scan: every unranged one, no ranged one."""
+    _build.reset_launch_counts()
+    first, last = row_minima_words(w0, w1, True, drange=drange)
+    _, pf, pl = ts.row_minima_torch_words(w0, w1, True, drange=drange)
+    assert torch.equal(first, pf) and torch.equal(last, pl)
+    f2, none = row_minima_words(w0, w1, False, drange=drange)
+    assert none is None and torch.equal(f2, pf)
+    counts = _build.launch_counts()
+    assert counts["hamming"] == 2
+    assert counts["hamming_mma"] == (2 if drange is None else 0)
+    return first, last
+
+
+# LIMITED n for each word count 1..8 (9, 17, ..., 65 shots: 30 to 254
+# bits), FULL n 4, 8, 12, 16 (1, 2, 4, 8 words), and the first cases'
+# widths: K = 128 bits for nw <= 4, 256 for 5-8.
 @pytest.mark.parametrize("n, mode, w", [
     (2, "LIMITED", 70), (33, "LIMITED", 1100), (16, "FULL", 513),
     (65, "LIMITED", 129),
+    *((n, "LIMITED", 1031) for n in (9, 17, 25, 41, 49, 57)),
+    (34, "LIMITED", 3301),
+    *((n, "FULL", 777) for n in (4, 8, 12)),
 ])
 def test_scan_kernel_equal(dev, n, mode, w):
     s0, s1 = _pair(dev, n, 5, w)
     m = tb.TransformMode[mode]
     w0, w1 = td.descriptor_words(s0, m), td.descriptor_words(s1, m)
-    first, last = row_minima_words(w0, w1, True)
-    _, pf, pl = ts.row_minima_torch_words(w0, w1, True)
-    assert torch.equal(first, pf) and torch.equal(last, pl)
-    f2, none = row_minima_words(w0, w1, False)
-    assert none is None and torch.equal(f2, pf)
+    _assert_scan_equal(w0, w1)
+    _assert_scan_equal(w0, w1, drange=(0, 63))
+
+
+def _scan_words(dev, case, nw, w0, w1, seed):
+    """Left and right words for a scan edge case: ``random``; ``ties``,
+    every column the same, so first = 0 and last = w1 - 1; ``dup``, the
+    right row the left pixels, then an all-ones column, then the pixels
+    again, so each best column has a twin; ``ones_zeros`` and
+    ``zeros_ones``, all-ones words against all-zero ones and back, the
+    greatest and least cost at each K; ``ones``, all ones both sides."""
+    ones = torch.full((2, max(w0, w1), nw), -1, dtype=torch.int32,
+                      device=dev)
+    zeros = torch.zeros_like(ones)
+    if case == "random":
+        return (_random_words(dev, 2, w0, nw, seed),
+                _random_words(dev, 2, w1, nw, seed + 1))
+    if case == "ties":
+        a = _random_words(dev, 2, w0, nw, seed)
+        b = _random_words(dev, 2, 1, nw, seed + 1).expand(2, w1, nw)
+        return a, b.contiguous()
+    if case == "dup":
+        a = _random_words(dev, 2, w0, nw, seed)
+        return a, torch.cat([a, ones[:, :1], a], 1)
+    if case == "ones_zeros":
+        return ones[:, :w0].contiguous(), zeros[:, :w1].contiguous()
+    if case == "zeros_ones":
+        return zeros[:, :w0].contiguous(), ones[:, :w1].contiguous()
+    return ones[:, :w0].contiguous(), ones[:, :w1].contiguous()
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "dup", "ones_zeros",
+                                  "zeros_ones", "ones"])
+@pytest.mark.parametrize("w0, w1", [
+    (1, 1), (7, 63), (65, 129), (129, 7), (63, 3301), (3301, 65),
+])
+@pytest.mark.parametrize("nw", range(1, 9))
+def test_scan_kernel_edges(dev, nw, w0, w1, case):
+    """The tensor-core scan at every word count against the plain scan:
+    ragged and unequal widths (a partial last tile of 8 columns, rows of
+    one column, a stage and a chunk boundary inside the row), ties across
+    the whole row, a duplicated best column, and the words that give the
+    least and the greatest cost."""
+    a, b = _scan_words(dev, case, nw, w0, w1, 17 * nw + w0)
+    first, last = _assert_scan_equal(a, b)
+    if case in ("ties", "ones_zeros", "zeros_ones", "ones"):
+        assert bool((first == 0).all())
+        assert bool((last == b.shape[1] - 1).all())
+    if case == "dup":
+        assert bool((last - first == w0 + 1).all())
 
 
 # agree.cu's packed sweep at each edge of its shot buckets
@@ -124,9 +191,10 @@ def test_match_cuda_launches_every_kernel_and_matches_plain(dev):
     _build.reset_launch_counts()
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True, backend="cuda")
     counts = _build.launch_counts()
-    assert counts == {"transform": 2, "hamming": 1, "consistency": 0,
-                      "agree": 1, "agree_packed": 1, "agree_double": 0,
-                      "band": 0, "band_consistency": 0, "bases": 0}
+    assert counts == {"transform": 2, "hamming": 1, "hamming_mma": 1,
+                      "consistency": 0, "agree": 1, "agree_packed": 1,
+                      "agree_double": 0, "band": 0, "band_consistency": 0,
+                      "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
     v = ~torch.isnan(want_d)
@@ -172,11 +240,7 @@ def test_ranged_scan_kernel_equal(dev, n, mode, w0, w1, drange):
     """The ranged scan against its plain version, sentinels included
     ((5000, 6000) leaves every pixel without a candidate)."""
     a, b = _words_pair(dev, n, mode, 5, w0, w1)
-    first, last = row_minima_words(a, b, True, drange=drange)
-    _, pf, pl = ts.row_minima_torch_words(a, b, True, drange=drange)
-    assert torch.equal(first, pf) and torch.equal(last, pl)
-    f2, none = row_minima_words(a, b, False, drange=drange)
-    assert none is None and torch.equal(f2, pf)
+    first, last = _assert_scan_equal(a, b, drange=drange)
     if drange == (5000, 6000):
         assert bool((first == -1).all()) and bool((last == -2).all())
 
@@ -300,20 +364,20 @@ def test_consistency_kernel_ultrawide(dev, drange):
 
 @pytest.mark.parametrize("variant, drange, expect", [
     (tb.Consistency(1, True), None,
-     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "agree_packed": 1, "agree_double": 0, "band": 0,
+     {"transform": 2, "hamming": 0, "hamming_mma": 0, "consistency": 1,
+      "agree": 1, "agree_packed": 1, "agree_double": 0, "band": 0,
       "band_consistency": 0, "bases": 0}),
     (tb.NoDuplicates(), (0, 63),
-     {"transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-      "agree_packed": 1, "agree_double": 0, "band": 0,
+     {"transform": 2, "hamming": 1, "hamming_mma": 0, "consistency": 0,
+      "agree": 1, "agree_packed": 1, "agree_double": 0, "band": 0,
       "band_consistency": 0, "bases": 0}),
     (tb.Consistency(3, True), (0, 63),
-     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "agree_packed": 1, "agree_double": 0, "band": 0,
+     {"transform": 2, "hamming": 0, "hamming_mma": 0, "consistency": 1,
+      "agree": 1, "agree_packed": 1, "agree_double": 0, "band": 0,
       "band_consistency": 0, "bases": 0}),
     (tb.Consistency(2, False), (-10, 40),
-     {"transform": 2, "hamming": 0, "consistency": 1, "agree": 1,
-      "agree_packed": 1, "agree_double": 0, "band": 0,
+     {"transform": 2, "hamming": 0, "hamming_mma": 0, "consistency": 1,
+      "agree": 1, "agree_packed": 1, "agree_double": 0, "band": 0,
       "band_consistency": 0, "bases": 0}),
 ])
 def test_match_cuda_variants_match_plain(dev, variant, drange, expect):
@@ -541,8 +605,8 @@ def test_match_sharded_w_on_one_card_equals_match(dev, variant, drange,
     got_d, got_c = sharding.match_sharded_w(s0, s1, cfg, mesh=mesh,
                                             corrmap=True, backend="cuda")
     assert _build.launch_counts() == {
-        "transform": 6, "hamming": 0, "consistency": 0, "agree": 3,
-        "agree_packed": 3, "agree_double": 0, **band_launches,
+        "transform": 6, "hamming": 0, "hamming_mma": 0, "consistency": 0,
+        "agree": 3, "agree_packed": 3, "agree_double": 0, **band_launches,
         "bases": 0}
     for got, want in ((got_d, want_d), (got_c, want_c)):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
@@ -754,13 +818,13 @@ def test_double_agree_kernel_matches_plain(dev, n, dtype, step, minvar):
         assert bool((corr[m] != c32[m]).any())
 
 
-@pytest.mark.parametrize("variant, drange, scan", [
-    (tb.NoDuplicates(), None, "hamming"),
-    (tb.Consistency(1, True), None, "consistency"),
-    (tb.NoDuplicates(), (0, 63), "hamming"),
+@pytest.mark.parametrize("variant, drange, scans", [
+    (tb.NoDuplicates(), None, {"hamming": 1, "hamming_mma": 1}),
+    (tb.Consistency(1, True), None, {"consistency": 1}),
+    (tb.NoDuplicates(), (0, 63), {"hamming": 1}),
 ])
 def test_match_cuda_dynwin_equals_window_off(dev, monkeypatch, variant,
-                                             drange, scan):
+                                             drange, scans):
     """``BICOS_AGREE_DYNWIN=640`` launches the bases kernel and the
     windowed agree, and changes no bit of the result."""
     s0, s1 = _pair(dev, 33, 16, 1400)
@@ -773,9 +837,9 @@ def test_match_cuda_dynwin_equals_window_off(dev, monkeypatch, variant,
     _build.reset_launch_counts()
     got = tb.match(s0, s1, cfg, corrmap=True)
     assert _build.launch_counts() == {
-        "transform": 2, "hamming": 0, "consistency": 0, "agree": 1,
-        "agree_packed": 1, "agree_double": 0, "band": 0,
-        "band_consistency": 0, "bases": 1, scan: 1}
+        "transform": 2, "hamming": 0, "hamming_mma": 0, "consistency": 0,
+        "agree": 1, "agree_packed": 1, "agree_double": 0, "band": 0,
+        "band_consistency": 0, "bases": 1, **scans}
     for a, b in zip(got, want):
         _assert_bitwise(a, b)
 
@@ -787,8 +851,8 @@ def test_match_cuda_double_launches_and_matches_plain(dev):
     _build.reset_launch_counts()
     got_d, got_c = tb.match(s0, s1, cfg, corrmap=True)
     assert _build.launch_counts() == {
-        "transform": 2, "hamming": 1, "consistency": 0, "agree": 1,
-        "agree_packed": 1, "agree_double": 1, "band": 0,
+        "transform": 2, "hamming": 1, "hamming_mma": 1, "consistency": 0,
+        "agree": 1, "agree_packed": 1, "agree_double": 1, "band": 0,
         "band_consistency": 0, "bases": 0}
     want_d, want_c = tb.match(s0, s1, cfg, corrmap=True, backend="torch")
     _assert_plain_bar(got_d, got_c, want_d, want_c)
